@@ -1,0 +1,87 @@
+"""Carry state across from the JAX reference to the port.
+
+The reference's ``SimState``, ``Tables``, ``Grid`` and ``SourceStatic``
+arrive as flat dicts of numpy arrays keyed by dotted field names
+(``"zones.tea"``, ``"photons.e"``, ``"gamma_bar.log_theta"``, ...), as
+:func:`flatten` makes them from any NamedTuple whose leaves
+``np.asarray`` accepts. :func:`from_reference` rebuilds the port's
+NamedTuples on a device, so both packages can run from the same state.
+This module never imports jax.
+"""
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import numpy as np
+import torch
+
+from compton2d_tpu_torch.grid import Grid
+from compton2d_tpu_torch.physics.electron_dist import GammaBarTable
+from compton2d_tpu_torch.physics.emissivity import SyncKernelTable
+from compton2d_tpu_torch.state import PhotonArray, SimState, ZoneState
+from compton2d_tpu_torch.tables import Tables
+from compton2d_tpu_torch.transport.sourcing import SourceStatic
+
+
+def flatten(obj, prefix: str = "") -> Dict[str, np.ndarray]:
+    """NamedTuple (nested) -> {dotted field name: np.asarray(leaf)}."""
+    out: Dict[str, np.ndarray] = {}
+    for name in obj._fields:
+        leaf = getattr(obj, name)
+        key = prefix + name
+        if hasattr(leaf, "_fields"):
+            out.update(flatten(leaf, key + "."))
+        else:
+            out[key] = np.asarray(leaf)
+    return out
+
+
+def _tensor(a: np.ndarray, device) -> torch.Tensor:
+    a = np.array(a)   # a private, writable copy of the caller's buffer
+    if a.dtype == np.float64:
+        a = a.astype(np.float32)
+    return torch.as_tensor(a, device=device)
+
+
+def _build(cls, d: Dict[str, np.ndarray], prefix: str, device,
+           nested=None):
+    nested = nested or {}
+    kw = {}
+    for name in cls._fields:
+        if name in nested:
+            kw[name] = _build(nested[name], d, prefix + name + ".", device)
+        else:
+            kw[name] = _tensor(d[prefix + name], device)
+    return cls(**kw)
+
+
+def from_reference(
+    state: Dict[str, np.ndarray], tables: Dict[str, np.ndarray],
+    grid: Dict[str, np.ndarray], src: Dict[str, np.ndarray],
+    device="cpu", seed: int = 0,
+) -> Tuple[SimState, Tables, Grid, SourceStatic]:
+    """The port's (SimState, Tables, Grid, SourceStatic) from flattened
+    reference objects. The reference's threefry key has no counterpart:
+    the port's ``state.key`` is a new generator seeded with ``seed``."""
+    dev = torch.device(device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(int(seed))
+    kw = {}
+    for name in SimState._fields:
+        if name == "zones":
+            kw[name] = _build(ZoneState, state, "zones.", dev)
+        elif name == "photons":
+            kw[name] = _build(PhotonArray, state, "photons.", dev)
+        elif name == "key":
+            kw[name] = gen
+        else:
+            kw[name] = _tensor(state[name], dev)
+    sim_state = SimState(**kw)
+    tab = _build(Tables, tables, "", dev, nested={
+        "sync": SyncKernelTable, "gamma_bar": GammaBarTable})
+    return (
+        sim_state,
+        tab,
+        _build(Grid, grid, "", dev),
+        _build(SourceStatic, src, "", dev),
+    )

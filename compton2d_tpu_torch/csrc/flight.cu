@@ -1,0 +1,526 @@
+// Photon flight kernel for Hopper (sm_90a): whole-step tracking with the
+// Compton scatter sampler inlined.
+//
+// Replaces compton2d_tpu/transport/flight_pallas2.py::_flight_kernel_v2 in
+// its resident-table, inline-scatter, pair_switch=False mode (the Pallas
+// call at flight_pallas2.py:1124). Each thread owns one photon slot and
+// runs the kernel's per-lane state machine FLY -> SCT_A -> SCT_B -> FLY
+// until census, leak, weight kill or max_iters:
+//   FLY   optical-depth draw, log-linear sigma/kappa lookup, distance to the
+//         next r-shell / z-plane, event select, continuous absorption with
+//         per-zone edep/prdep tallies, weight-floor kill, move, zone hop or
+//         leak (FLAG_LEAK keeps the target jn/kn);
+//   SCT_A guide-bracketed electron-CDF draw (SCAN_S bins per iteration),
+//         flux-factor angle and Klein-Nishina acceptance, force-accept of
+//         the last candidate at max_tries;
+//   SCT_B sz rejection, boost, azimuth, w *= E'/E, event log (K_LOG deep).
+//
+// What bounds it on the H100: divergent, latency-bound reads of the zone
+// tables (sigma/kappa rows, CDF, guide) and the per-lane branchy state
+// machine. It does few FLOPs per byte and is not limited by bandwidth or
+// arithmetic. The tables are read straight from global memory in their
+// natural layout (they stay in L2); the TPU's (rows, 128) layout and
+// chunk sweeps are Mosaic workarounds with no counterpart here.
+//
+// Determinism: per-zone tallies are reduced in a fixed order. Each warp
+// runs its lanes in lock step (the TPU tile's lock step, per warp); every
+// iteration the lanes that deposit in the same zone are summed in lane
+// order by the lowest such lane into the warp's own shared-memory row, and
+// at exit the block adds its warps' rows in warp order into a per-block
+// partial (n_blocks, 2, nzr) that the wrapper sums with torch.sum. No float
+// atomics are used, so equal inputs give bitwise-equal outputs.
+//
+// Random numbers: the counter hash of the Pallas interpret mode
+// (flight_pallas2.py:114-140), keyed by (tile seed, iteration, draw, lane)
+// with lane = slot % 1024, so the plain PyTorch version in
+// transport/flight.py draws the same numbers lane for lane.
+//
+// Numerics follow the Pallas kernel: f32 throughout, the same clamps and
+// floors, the 7-term KN series for zn <= 0.15, and the tiny_abs branch.
+// Build without fast math and with -fmad=false so each operation rounds
+// as the plain version's does.
+//
+// This first version is simple on purpose: one thread per slot, tables in
+// global memory, no sorting by zone, no persistent blocks.
+
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int TILE = 1024;
+constexpr int K_LOG = 8;
+constexpr int SCAN_S = 4;
+constexpr int GUIDE_G = 512;
+constexpr int WARPS = 4;
+constexpr int THREADS = WARPS * 32;
+constexpr unsigned FULL = 0xffffffffu;
+
+constexpr int FLAG_NONE = 0;
+constexpr int FLAG_LEAK = 2;
+constexpr int MODE_FLY = 0;
+constexpr int MODE_SCT_A = 1;
+constexpr int MODE_SCT_B = 2;
+
+// f32 values of the Pallas kernel's Python constants
+constexpr float CLAMP = 1.0f;                  // f32(0.99999999)
+constexpr float CLAMP_S = 0x1.fffffcp-1f;      // f32(0.9999999)
+constexpr float ONE_M_1E7 = 0x1.fffffcp-1f;    // f32(1 - 1e-7)
+constexpr float ONE_M_2E7 = 0x1.fffffap-1f;    // f32(1 - 2e-7)
+constexpr float FRAC_MAX = 0x1.ffffdep-1f;     // f32(0.999999)
+constexpr float INV_LN2 = 0x1.715476p+0f;      // f32(1/ln 2)
+constexpr float GUIDE_LOG_SCALE = 0x1.47ae14p+3f;  // f32(256 / 25)
+constexpr float PI_F = 0x1.921fb6p+1f;         // f32(pi)
+constexpr float C_LIGHT_F = 0x1.beb9c0p+34f;   // f32(2.9979245620e10)
+constexpr float EMASS_KEV = 511.0f;
+constexpr float U24 = 0x1.0p-24f;
+
+struct Pointers {
+  // photon SoA in
+  const float* e; const float* w; const float* w0; const float* r;
+  const float* z; const float* mu; const float* cphi; const float* sphi;
+  const float* dcen; const int* jz; const int* kr; const int* alive;
+  const int* seeds;
+  // zone tables (natural layout)
+  const float* sig;    // (nzr, n_vol)
+  const float* kap;    // (nzr, n_vol)
+  const float* cdf;    // (nzr, num_nt)
+  const int* guide;    // (nzr, GUIDE_G)
+  const float* gm1;    // (num_nt - 1,)
+  const float* redges; // (nr + 1,)
+  const float* zedges; // (nz + 1,)
+  // outputs
+  float* e_o; float* w_o; float* r_o; float* z_o; float* mu_o;
+  float* cphi_o; float* sphi_o; float* dcen_o;
+  int* jz_o; int* kr_o; int* alive_o; int* mode_o; int* flag_o;
+  int* jn_o; int* kn_o; int* it_o;
+  float* ekill_o; float* esct_o; float* epair_o; int* cnt_o;
+  float* tally_part;   // (n_blocks, 2, nzr)
+  int* iglog;          // (n, K_LOG)
+  float* delog;        // (n, K_LOG)
+};
+constexpr int N_POINTERS = 43;
+
+struct Scalars {
+  int n, nz, nr, n_vol, num_nt, max_iters, max_tries;
+  float e_ph_log0, e_ph_dlog, x_ph_hi, weight_floor;
+};
+
+// NaN-propagating min/max/clip, as jnp.maximum / jnp.minimum / jnp.clip
+__device__ __forceinline__ float mx(float a, float b) {
+  return (a != a || b != b) ? __int_as_float(0x7fffffff) : (a > b ? a : b);
+}
+__device__ __forceinline__ float mn(float a, float b) {
+  return (a != a || b != b) ? __int_as_float(0x7fffffff) : (a < b ? a : b);
+}
+__device__ __forceinline__ float clip(float x, float lo, float hi) {
+  return mn(mx(x, lo), hi);
+}
+__device__ __forceinline__ int clipi(int x, int lo, int hi) {
+  return x < lo ? lo : (x > hi ? hi : x);
+}
+
+__device__ __forceinline__ uint32_t hash_u32(uint32_t x) {
+  x = (x ^ (x >> 16)) * 0x7FEB352Du;
+  x = (x ^ (x >> 15)) * 0x846CA68Bu;
+  return x ^ (x >> 16);
+}
+
+// uniform [0, 1) with a 24-bit mantissa (flight_pallas2._u01, interpret)
+__device__ __forceinline__ float u01(uint32_t seed, uint32_t it,
+                                     uint32_t draw, uint32_t lane) {
+  uint32_t ctr = seed + it * 2654435761u + draw * 40503u;
+  uint32_t bits = hash_u32(ctr ^ (lane * 2246822519u));
+  return (float)(int32_t)(bits >> 8) * U24;
+}
+
+// composite 512-cell guide index (flight_pallas2._guide_cell)
+__device__ __forceinline__ int guide_cell(float u) {
+  int j_lin = (int)floorf(u * (float)GUIDE_G);
+  float neg_l2 = -logf(mx(1.0f - u, 1e-9f)) * INV_LN2;
+  int j_log = GUIDE_G / 2 + (int)floorf((neg_l2 - 1.0f) * GUIDE_LOG_SCALE);
+  int j = (u < 0.5f) ? j_lin : j_log;
+  return clipi(j, 0, GUIDE_G - 1);
+}
+
+__global__ void __launch_bounds__(THREADS)
+flight_kernel(Pointers p, Scalars s) {
+  extern __shared__ float smem[];
+  const int nzr = s.nz * s.nr;
+  float* wtally = smem;                                  // [WARPS][2][nzr]
+  float* st_ed = wtally + WARPS * 2 * nzr;               // [WARPS][32]
+  float* st_pr = st_ed + THREADS;                        // [WARPS][32]
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int wl = tid & 31;
+  for (int i = tid; i < WARPS * 2 * nzr; i += THREADS) wtally[i] = 0.0f;
+  __syncthreads();
+
+  const int slot = blockIdx.x * THREADS + tid;
+  const uint32_t lane = (uint32_t)(slot % TILE);
+  const uint32_t seed = (uint32_t)p.seeds[slot / TILE];
+
+  float e = p.e[slot], w = p.w[slot], r = p.r[slot], z = p.z[slot];
+  float mu = p.mu[slot], cphi = p.cphi[slot], sphi = p.sphi[slot];
+  float dcen = p.dcen[slot];
+  const float w0 = p.w0[slot];
+  int jz = p.jz[slot], kr = p.kr[slot], alive = p.alive[slot];
+  int flag = FLAG_NONE, jn = jz, kn = kr, mode = MODE_FLY;
+  int scan_idx = -1, scan_hi = 0, scan_cnt = 0, tries = 0, igam = 0;
+  int sct_cnt = 0;
+  float u_e = 0.0f, gma = 1.0f, omg = 0.0f, znue = 1e-3f;
+  float ekill = 0.0f, esct = 0.0f, epair = 0.0f;
+  for (int k = 0; k < K_LOG; ++k) {
+    p.iglog[(size_t)slot * K_LOG + k] = -1;
+    p.delog[(size_t)slot * K_LOG + k] = 0.0f;
+  }
+
+  float* my_tally = wtally + warp * 2 * nzr;
+  float* my_ed = st_ed + warp * 32;
+  float* my_pr = st_pr + warp * 32;
+
+  int it = 0;
+  while (true) {
+    const bool live = (alive == 1) && (flag == FLAG_NONE);
+    const bool fly = live && (mode == MODE_FLY) && (dcen > 0.0f);
+    const bool in_a = live && (mode == MODE_SCT_A);
+    const bool in_b = live && (mode == MODE_SCT_B);
+    if (!__any_sync(FULL, (it < s.max_iters) && (fly || in_a || in_b)))
+      break;
+    const uint32_t itu = (uint32_t)it;
+    const int zid = clipi(jz * s.nr + kr, 0, nzr - 1);
+    float edep_add = 0.0f, prdep_add = 0.0f, d_e = 0.0f;
+
+    if (fly) {
+      // ---- opacity lookup at the photon energy -------------------------
+      float x_ph = (logf(mx(e, 1e-30f)) - s.e_ph_log0) / s.e_ph_dlog;
+      x_ph = clip(x_ph, 0.0f, s.x_ph_hi);
+      const int i_ph = (int)floorf(x_ph);
+      const float f_ph = x_ph - (float)i_ph;
+      const int i_p1 = min(i_ph + 1, s.n_vol - 1);
+      const float* srow = p.sig + (size_t)zid * s.n_vol;
+      const float* krow = p.kap + (size_t)zid * s.n_vol;
+      const float sig =
+          mx(srow[i_ph] * (1.0f - f_ph) + srow[i_p1] * f_ph, 1e-30f);
+      const float kap = krow[i_ph] * (1.0f - f_ph) + krow[i_p1] * f_ph;
+
+      // ---- tau draw + geometry + event select --------------------------
+      const float u_tau = 1e-12f + u01(seed, itu, 0, lane) * 1.0f;
+      const float dcol = -logf(u_tau) / sig;
+      const int kr_c = clipi(kr, 0, s.nr - 1);
+      const int jz_c = clipi(jz, 0, s.nz - 1);
+      const float r_in = p.redges[kr_c], r_out = p.redges[kr_c + 1];
+      const float z_bot = p.zedges[jz_c], z_top = p.zedges[jz_c + 1];
+
+      const float eta = clip(cphi, -CLAMP, CLAMP);
+      const float mu_c = clip(mu, -CLAMP, CLAMP);
+      const float sin_mu = sqrtf(1.0f - mu_c * mu_c);
+      const float disp = eta * r;
+      const float rsp = r * sphi;
+      const float psq = rsp * rsp;
+      const bool inward = (eta < 0.0f) && (psq < r_in * r_in);
+      const float inout = inward ? -1.0f : 1.0f;
+      const float rbnd_shell = inward ? r_in : r_out;
+      const float dpbsq = mx(rbnd_shell * rbnd_shell - psq, 1e-6f);
+      const float disbr = mx(inout * sqrtf(dpbsq) - disp, 0.0f);
+      const float trldb_r = disbr / mx(sin_mu, 1e-12f);
+      const float z_r = z + mu_c * trldb_r;
+      const bool hits_top = z_r > z_top;
+      const bool hits_bot = z_r < z_bot;
+      const float zbnd_z = hits_top ? z_top : z_bot;
+      const float mu_den = (fabsf(mu_c) > 1e-12f) ? mu_c : 1e-12f;
+      const float f_z = mx((zbnd_z - z) * sin_mu / mu_den, 0.0f);
+      const float r_z =
+          sqrtf(mx(r * r + f_z * f_z + 2.0f * r * f_z * eta, 0.0f));
+      const float dzb = zbnd_z - z;
+      const float trldb_z = sqrtf(f_z * f_z + dzb * dzb);
+      const bool hits_zplane = hits_top || hits_bot;
+      const float trldb = hits_zplane ? trldb_z : trldb_r;
+      const int g_jnew = hits_top ? jz + 1 : (hits_bot ? jz - 1 : jz);
+      const int g_knew = hits_zplane ? kr : kr + (int)inout;
+      const float g_rbnd = hits_zplane ? r_z : rbnd_shell;
+      const float g_zbnd = hits_zplane ? zbnd_z : z_r;
+
+      float trld = mn(dcen, dcol);
+      int ikind = (dcen <= dcol) ? 2 : 3;
+      if (trldb < trld) {
+        trld = trldb;
+        ikind = 1;
+      }
+
+      // ---- continuous absorption ---------------------------------------
+      const float sigabs = mx(kap + 0.0f, 1e-30f);
+      const float xabs = sigabs * trld;
+      const float ewnew = (xabs < 100.0f) ? w * expf(-xabs) : 0.0f;
+      const float deleabs = mx(w - ewnew, 0.0f);
+      edep_add = deleabs * 1.0f;
+      epair = epair + deleabs * (1.0f - 1.0f);
+      const float u_s = 1e-7f + u01(seed, itu, 1, lane) * ONE_M_1E7;
+      const bool tiny_abs = xabs <= 1e-5f;
+      const float frac =
+          clip((1.0f - expf(-xabs)) * u_s, 0.0f, FRAC_MAX);
+      const float sstar =
+          tiny_abs ? 0.5f * trld : -logf(mx(1.0f - frac, 1e-7f)) / sigabs;
+      const float denom = sqrtf(
+          mx(r * r + 2.0f * mu * r * sstar + sstar * sstar, 1e-20f));
+      const float wmustar = tiny_abs ? mu : (mu * r + sstar) / denom;
+      prdep_add = deleabs * wmustar * C_LIGHT_F;
+
+      const bool killed = ewnew <= s.weight_floor * w0;
+      if (killed) ekill = ekill + ewnew;
+
+      // ---- move ---------------------------------------------------------
+      const bool on_bnd = ikind == 1;
+      const float f_h = trld * sqrtf(mx(1.0f - mu * mu, 0.0f));
+      const float r_free =
+          sqrtf(mx(f_h * f_h + r * r + 2.0f * f_h * r * cphi, 0.0f));
+      const float rnew = on_bnd ? g_rbnd : r_free;
+      const float znew = on_bnd ? g_zbnd : z + trld * mu;
+      const float rs = mx(rnew, 1e-20f);
+      float cphi_n = clip((f_h + cphi * r) / rs, -1.0f, 1.0f);
+      float sphi_n = clip(sphi * r / rs, -1.0f, 1.0f);
+      const float nrm =
+          sqrtf(mx(cphi_n * cphi_n + sphi_n * sphi_n, 1e-12f));
+      cphi_n = cphi_n / nrm;
+      sphi_n = sphi_n / nrm;
+
+      if (killed) {
+        w = 0.0f;
+        alive = 0;
+      } else {
+        w = ewnew;
+        r = rnew;
+        z = znew;
+        cphi = cphi_n;
+        sphi = sphi_n;
+        dcen = dcen - trld;
+        // ---- flight events ---------------------------------------------
+        if (ikind == 1) {
+          const bool in_dom = (g_jnew >= 0) && (g_jnew < s.nz) &&
+                              (g_knew >= 0) && (g_knew < s.nr);
+          if (in_dom) {
+            jz = g_jnew;
+            kr = g_knew;
+          } else {
+            flag = FLAG_LEAK;
+            jn = g_jnew;
+            kn = g_knew;
+          }
+        } else if (ikind == 3) {
+          mode = MODE_SCT_A;
+          scan_idx = -1;
+          tries = 0;
+        }
+      }
+    } else if (in_a) {
+      // ---- SCT_A: electron draw + angle + KN acceptance ----------------
+      if (scan_idx < 0) {
+        u_e = 1e-7f + u01(seed, itu, 2, lane) * ONE_M_2E7;
+        const int cell = guide_cell(u_e);
+        const int* grow = p.guide + (size_t)zid * GUIDE_G;
+        const int lo = grow[cell];
+        const int hi = (cell >= GUIDE_G - 1) ? s.num_nt : grow[cell + 1];
+        scan_idx = lo;
+        scan_cnt = lo;
+        scan_hi = hi;
+      }
+      const float* crow = p.cdf + (size_t)zid * s.num_nt;
+      for (int k = 0; k < SCAN_S; ++k) {
+        const int m = scan_idx + k;
+        if (m < scan_hi && crow[m] < u_e) scan_cnt += 1;
+      }
+      scan_idx += SCAN_S;
+      if (scan_idx >= scan_hi) {
+        const int idx = clipi(scan_cnt, 1, s.num_nt - 1);
+        const float gma_new = p.gm1[idx - 1] + 1.0f;
+        const float beta_new =
+            sqrtf(mx(1.0f - 1.0f / (gma_new * gma_new), 0.0f));
+        float om = 2.0f * u01(seed, itu, 3, lane) - 1.0f;
+        om = clip(om, -CLAMP_S, CLAMP_S);
+        const float tl_u = u01(seed, itu, 4, lane);
+        om = clip((tl_u > 0.5f * (1.0f - beta_new * om)) ? -om : om,
+                  -CLAMP_S, CLAMP_S);
+        const float znu = e / EMASS_KEV;
+        const float zn = (1.0f - beta_new * om) * znu * gma_new;
+        const float zs = mx(zn, 1e-6f);
+        const float ser =
+            1.0f - zn * (2.0f - zn * (5.2f - zn * (13.3f - zn * (
+                0x1.057c58p+5f - zn * (0x1.36db6ep+6f
+                - zn * 0x1.f34d34p+6f)))));
+        const float z3 = zs * zs * zs;
+        const float betz = 1.0f + 2.0f * zs;
+        const float gamz = zs * (zs - 2.0f) - 2.0f;
+        const float full =
+            0.375f * (4.0f * zs + 2.0f * z3 * (1.0f + zs) / (betz * betz)
+                      + gamz * logf(betz)) / z3;
+        const float xknot = (zn <= 0.15f) ? ser : full;
+        const float u_acc = u01(seed, itu, 5, lane);
+        const bool ok = (zn >= 1e-10f) && (u_acc <= xknot);
+        tries += 1;
+        // the last candidate is force-accepted at max_tries (the
+        // kernel's rule, flight_pallas2.py:722-734)
+        if (ok || tries >= s.max_tries) {
+          gma = gma_new;
+          omg = om;
+          znue = mx(zn, 1e-10f);
+          igam = idx;
+          mode = MODE_SCT_B;
+        } else {
+          scan_idx = -1;
+        }
+      }
+    } else if (in_b) {
+      // ---- SCT_B: sz rejection + finish --------------------------------
+      const float betz_b = 1.0f + 2.0f * znue;
+      const float phat = betz_b + 1.0f / betz_b;
+      const float u1 = u01(seed, itu, 6, lane);
+      const float sz = (1.0f + 2.0f * znue * u1) / betz_b;
+      const float games_t = 1.0f + (1.0f - 1.0f / mx(sz, 1e-7f)) / znue;
+      const bool ok_g = games_t * games_t <= 1.0f;
+      const float tr_b = games_t * games_t - 1.0f + sz + 1.0f / sz;
+      const float u2 = u01(seed, itu, 7, lane);
+      if (ok_g && (u2 * phat <= tr_b)) {
+        const float beta_f = sqrtf(mx(1.0f - 1.0f / (gma * gma), 0.0f));
+        const float znues = znue * sz;
+        const float a1 = PI_F * (2.0f * u01(seed, itu, 8, lane) - 1.0f);
+        const float cazes = cosf(a1);
+        const float omege =
+            clip((omg - beta_f) / (1.0f - beta_f * omg), -CLAMP_S, CLAMP_S);
+        const float games = clip(games_t, -CLAMP_S, CLAMP_S);
+        float omeges = games * omege + cazes * sqrtf(mx(
+            (1.0f - omege * omege) * (1.0f - games * games), 0.0f));
+        omeges = clip(omeges, -CLAMP_S, CLAMP_S);
+        const float znu_b = e / EMASS_KEV;
+        const float znus = (1.0f + beta_f * omeges) * gma * znues;
+        float gams = 1.0f - (znue - znues) / mx(znu_b * znus, 1e-30f);
+        gams = clip(gams, -CLAMP_S, CLAMP_S);
+        const float a2 = PI_F * (2.0f * u01(seed, itu, 9, lane) - 1.0f);
+        const float cazs = clip(cosf(a2), -CLAMP_S, CLAMP_S);
+        const float mu_b = clip(mu, -CLAMP_S, CLAMP_S);
+        float wmus = mu_b * gams + cazs * sqrtf(mx(
+            (1.0f - gams * gams) * (1.0f - mu_b * mu_b), 0.0f));
+        wmus = clip(wmus, -CLAMP_S, CLAMP_S);
+        float cosd = (gams - mu_b * wmus) / sqrtf(mx(
+            (1.0f - mu_b * mu_b) * (1.0f - wmus * wmus), 1e-20f));
+        cosd = clip(cosd, -CLAMP_S, CLAMP_S);
+        float sind = sqrtf(mx(1.0f - cosd * cosd, 0.0f));
+        const float sgn = (u01(seed, itu, 10, lane) < 0.5f) ? 1.0f : -1.0f;
+        sind = sgn * sind;
+        const float cphi_s = cphi * cosd - sphi * sind;
+        const float sphi_s = sphi * cosd + cphi * sind;
+        const float nrm_s =
+            sqrtf(mx(cphi_s * cphi_s + sphi_s * sphi_s, 1e-12f));
+        const float e_new = znus * EMASS_KEV;
+        const float wscale = znus / mx(znu_b, 1e-30f);
+        const float w_new = w * wscale;
+        d_e = w_new - w;
+        e = e_new;
+        w = w_new;
+        mu = wmus;
+        cphi = cphi_s / nrm_s;
+        sphi = sphi_s / nrm_s;
+        mode = MODE_FLY;
+        esct = esct + d_e;
+        if (sct_cnt < K_LOG) {
+          p.iglog[(size_t)slot * K_LOG + sct_cnt] = igam;
+          p.delog[(size_t)slot * K_LOG + sct_cnt] = d_e;
+        }
+        sct_cnt += 1;
+      }
+    }
+
+    // ---- per-zone tallies: fixed-order warp reduction ------------------
+    const float ed_c = edep_add + d_e;
+    const int key = (fly || in_b) ? zid : -1;
+    __syncwarp();
+    my_ed[wl] = ed_c;
+    my_pr[wl] = prdep_add;
+    __syncwarp();
+    const unsigned group = __match_any_sync(FULL, key);
+    if (key >= 0 && (__ffs(group) - 1) == wl) {
+      float sum_ed = 0.0f, sum_pr = 0.0f;
+      unsigned m = group;
+      bool first = true;
+      while (m) {
+        const int src = __ffs(m) - 1;
+        m &= m - 1;
+        if (first) {
+          sum_ed = my_ed[src];
+          sum_pr = my_pr[src];
+          first = false;
+        } else {
+          sum_ed = sum_ed + my_ed[src];
+          sum_pr = sum_pr + my_pr[src];
+        }
+      }
+      my_tally[key] = my_tally[key] + sum_ed;
+      my_tally[nzr + key] = my_tally[nzr + key] + sum_pr;
+    }
+    __syncwarp();
+    it += 1;
+  }
+
+  p.e_o[slot] = e;
+  p.w_o[slot] = w;
+  p.r_o[slot] = r;
+  p.z_o[slot] = z;
+  p.mu_o[slot] = mu;
+  p.cphi_o[slot] = cphi;
+  p.sphi_o[slot] = sphi;
+  p.dcen_o[slot] = dcen;
+  p.jz_o[slot] = jz;
+  p.kr_o[slot] = kr;
+  p.alive_o[slot] = alive;
+  p.mode_o[slot] = mode;
+  p.flag_o[slot] = flag;
+  p.jn_o[slot] = jn;
+  p.kn_o[slot] = kn;
+  p.it_o[slot] = it;
+  p.ekill_o[slot] = ekill;
+  p.esct_o[slot] = esct;
+  p.epair_o[slot] = epair;
+  p.cnt_o[slot] = sct_cnt;
+
+  __syncthreads();
+  float* part = p.tally_part + (size_t)blockIdx.x * 2 * nzr;
+  for (int i = tid; i < 2 * nzr; i += THREADS) {
+    float acc = wtally[i];
+    for (int wp = 1; wp < WARPS; ++wp) acc = acc + wtally[wp * 2 * nzr + i];
+    part[i] = acc;
+  }
+}
+
+}  // namespace
+
+extern "C" {
+
+int flight_threads_per_block() { return THREADS; }
+
+// Launches the kernel on `stream` and returns cudaGetLastError().
+// `ptrs` holds the N_POINTERS device pointers in the order of Pointers.
+// n must be a multiple of TILE; nz * nr <= 1024 keeps the per-warp
+// tallies inside 48 KB of shared memory.
+int flight_launch(const uint64_t* ptrs, int n_ptrs, int n, int nz, int nr,
+                  int n_vol, int num_nt, int max_iters, int max_tries,
+                  float e_ph_log0, float e_ph_dlog, float x_ph_hi,
+                  float weight_floor, void* stream) {
+  if (n_ptrs != N_POINTERS || n % TILE != 0 || nz * nr > 1024)
+    return (int)cudaErrorInvalidValue;
+  Pointers p;
+  static_assert(sizeof(Pointers) == N_POINTERS * sizeof(void*),
+                "Pointers layout");
+  const void** dst = reinterpret_cast<const void**>(&p);
+  for (int i = 0; i < N_POINTERS; ++i)
+    dst[i] = reinterpret_cast<const void*>(ptrs[i]);
+  Scalars s{n, nz, nr, n_vol, num_nt, max_iters, max_tries,
+            e_ph_log0, e_ph_dlog, x_ph_hi, weight_floor};
+  const int nzr = nz * nr;
+  const size_t smem = sizeof(float) * ((size_t)WARPS * 2 * nzr + 2 * THREADS);
+  flight_kernel<<<n / THREADS, THREADS, smem,
+                  reinterpret_cast<cudaStream_t>(stream)>>>(p, s);
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

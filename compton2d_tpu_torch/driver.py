@@ -1,0 +1,487 @@
+"""Simulation driver: the per-step orchestration and time loop
+(counterpart of ``compton2d_tpu.driver``).
+
+One step runs the reference's phase order on one device: census clock
+reset, zone pass (B field, emissivities, budget), census roulette,
+emission, tracking through the flight kernel, census tallies, the
+Fokker-Planck electron update and the time advance. dt is constant, as in
+the reference's active code.
+
+The port covers one slice of the reference's options. ``Simulation``
+raises ``NotImplementedError`` naming the option for anything outside it:
+pair physics, boundary reflection (cr_sent != 0), stratified splitting,
+device meshes, file-spectrum boundaries, the Coulomb FP drift, adaptive
+dt, coronal flares and grids above 1024 zones.
+"""
+from __future__ import annotations
+
+import warnings
+from typing import NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+
+from compton2d_tpu_torch import constants as cn
+from compton2d_tpu_torch.config import SimConfig, TimeWindow, ZoneInit
+from compton2d_tpu_torch.units import Scales, make_scales
+from compton2d_tpu_torch.fp.update import fp_step
+from compton2d_tpu_torch.grid import Grid, initial_dt, make_grid
+from compton2d_tpu_torch.physics.compton import zone_sigma_table
+from compton2d_tpu_torch.physics.emissivity import equipartition_b, volume_em
+from compton2d_tpu_torch.state import (
+    EventBuffer,
+    PhotonArray,
+    SimState,
+    Tallies,
+    ZoneState,
+    init_zone_state,
+)
+from compton2d_tpu_torch.tables import Tables, build_tables
+from compton2d_tpu_torch.transport import flight, sourcing
+from compton2d_tpu_torch.transport.population import census_roulette
+from compton2d_tpu_torch.transport.tracking import (
+    TrackContext,
+    TrackStatics,
+    census_tally,
+    segment_sum,
+    transport_step,
+)
+
+SPEC_INV_M = 4096   # the reference's quantile-bank width (unused rows)
+
+
+class StepOutputs(NamedTuple):
+    """Per-step results (fields as in the reference)."""
+
+    tallies: Tallies
+    events: EventBuffer
+    bingo: torch.Tensor
+    e_el_old: torch.Tensor
+    e_el_new: torch.Tensor
+    dT_max: torch.Tensor
+    fp_substeps: torch.Tensor
+    fp_incomplete: torch.Tensor
+    n_tracked: torch.Tensor
+    nph_raw: torch.Tensor
+    nph_fit: torch.Tensor
+
+
+class WindowSources(NamedTuple):
+    """Per-time-window boundary sources. The reference also keeps an
+    "off" variant per window that zeroes file-spectrum flux before the
+    window starts; with thermal boundaries only, there is nothing to
+    switch off."""
+
+    t1: np.ndarray                              # (n_windows,) end times [s]
+    sources: Tuple[sourcing.SourceStatic, ...]
+
+    def select(self, time: float, dt: float, ncycle: int):
+        """First window with t1 > time + dt/2, clamped to the last
+        (imcgen2d.f:111-120; ncycle 0 uses window 1)."""
+        if ncycle == 0:
+            return self.sources[0]
+        idx = int(np.searchsorted(self.t1, time + 0.5 * dt, side="right"))
+        return self.sources[min(idx, len(self.sources) - 1)]
+
+
+def build_window_sources(cfg: SimConfig, scales: Scales,
+                         device="cpu") -> WindowSources:
+    """Per-window SourceStatic for thermal (Planck) boundaries."""
+    g = cfg.grid
+    windows = cfg.windows or (
+        TimeWindow(
+            t0=0.0, t1=float("inf"),
+            tbb_upper=(0.0,) * g.nr, tbb_lower=(0.0,) * g.nr,
+            tbb_inner=(0.0,) * g.nz, tbb_outer=(0.0,) * g.nz,
+        ),
+    )
+    star = cfg.physics
+    dilution = (star.r_star / star.dist_star) ** 2 if star.star_switch else 1.0
+
+    def f(a):
+        return torch.as_tensor(np.asarray(a, np.float32), device=device)
+
+    spec_cdf = np.ones((1, 2), np.float32)
+    spec_cdf[0, 0] = 0.0
+    sources = []
+    for w in windows:
+        sources.append(sourcing.SourceStatic(
+            tbb_lower=f(w.tbb_lower), tbb_upper=f(w.tbb_upper),
+            tbb_inner=f(w.tbb_inner), tbb_outer=f(w.tbb_outer),
+            spec_e=f(np.ones((1, 2))), spec_cdf=f(spec_cdf),
+            spec_inv=f(np.zeros((1, SPEC_INV_M))),
+            spec_lower=torch.zeros(g.nr, dtype=torch.int32, device=device),
+            spec_upper=torch.zeros(g.nr, dtype=torch.int32, device=device),
+            flux_lower=f(np.zeros(g.nr)), flux_upper=f(np.zeros(g.nr)),
+            star_dilution=f(dilution),
+        ))
+    return WindowSources(
+        t1=np.asarray([w.t1 for w in windows], float),
+        sources=tuple(sources),
+    )
+
+
+def _estimate_energy_scale(cfg: SimConfig, zone_init: ZoneInit) -> float:
+    """Energy unit E0 so per-step scaled energies sit around 1e6."""
+    g = cfg.grid
+    dt0 = (cfg.run.mcdt * min(g.r_max / g.nr, g.z_max / g.nz)
+           / cfg.physics.injection.v)
+    area = np.pi * g.r_max**2
+    tbb_max = 0.0
+    for w in cfg.windows:
+        for arr in (w.tbb_lower, w.tbb_upper, w.tbb_inner, w.tbb_outer):
+            tbb_max = max(tbb_max, max((abs(t) for t in arr), default=0.0))
+    bb = cn.SIGMA_SB_KEV * tbb_max**4 * area * dt0
+    vol_tot = np.pi * g.r_max**2 * g.z_max
+    sy = (
+        1.058e-15
+        * float(np.max(zone_init.n_e))
+        * float(np.max(zone_init.B_field)) ** 2
+        * float(np.max(zone_init.gmax))
+        * vol_tot * dt0 * 0.01
+    )
+    inj = cfg.physics.injection.luminosity * dt0
+    return max(bb, sy, inj, 1.0) / 1e6
+
+
+def check_slice(cfg: SimConfig, mesh=None) -> None:
+    """Raise NotImplementedError for options the port does not run yet."""
+    phys, g = cfg.physics, cfg.grid
+    unsupported = [
+        (phys.pair_switch, "pair_switch"),
+        (phys.cr_sent != 0, "cr_sent != 0 (boundary reflection)"),
+        (cfg.source.strat_split, "strat_split"),
+        (mesh is not None, "mesh (multi-device)"),
+        (any(t < 0.0 for w in cfg.windows for t in (
+            *w.tbb_lower, *w.tbb_upper, *w.tbb_inner, *w.tbb_outer)),
+         "file-spectrum boundaries (tbb < 0)"),
+        (phys.fp_include_coulomb, "fp_include_coulomb"),
+        (cfg.run.adaptive_dt, "adaptive_dt"),
+        (phys.flare.enabled, "flare"),
+        (g.nz * g.nr > flight.MAX_ZONES,
+         f"grids with nz*nr > {flight.MAX_ZONES}"),
+    ]
+    for bad, name in unsupported:
+        if bad:
+            raise NotImplementedError(f"compton2d_tpu_torch: {name} is not "
+                                      "ported yet")
+    if cfg.run.n_slots % flight.TILE:
+        raise ValueError(f"n_slots={cfg.run.n_slots} must be a multiple of "
+                         f"{flight.TILE}")
+
+
+class Simulation:
+    """Owns the configuration, tables, state and random stream.
+
+    ``device`` is where every tensor lives; the random stream is a
+    ``torch.Generator`` on that device seeded from ``cfg.run.seed``
+    (``state.key``). Host clock mirror: time/dt/ncycle advance
+    deterministically, so the driver tracks them on the host instead of
+    reading the device scalars each step; assigning ``sim.state`` marks
+    the mirror dirty and the next ``step()`` resyncs it.
+    """
+
+    @property
+    def state(self) -> SimState:
+        return self._state
+
+    @state.setter
+    def state(self, s: SimState):
+        self._state = s
+        self._clock_dirty = True
+
+    def _sync_clock(self):
+        if getattr(self, "_clock_dirty", True):
+            self._host_time = float(self._state.time)
+            self._host_dt = float(self._state.dt)
+            self._host_dt_prev = float(self._state.dt_prev)
+            self._host_ncycle = int(self._state.ncycle)
+            self._clock_dirty = False
+
+    def __init__(self, cfg: SimConfig, zone_init: Optional[ZoneInit] = None,
+                 *, device, mesh=None):
+        check_slice(cfg, mesh)
+        self.cfg = cfg
+        self.device = torch.device(device)
+        dev = self.device
+        if zone_init is None:
+            zone_init = ZoneInit.uniform(cfg.grid)
+        self.zone_init = zone_init
+        e_scale = cfg.run.energy_scale or _estimate_energy_scale(
+            cfg, zone_init)
+        self.scales: Scales = make_scales(cfg.grid.z_max, cfg.grid.r_max,
+                                          e_scale)
+        self.grid: Grid = make_grid(cfg.grid, self.scales.L, dev)
+        self.tables: Tables = build_tables(cfg.grid, self.scales.L, dev)
+        zones = init_zone_state(cfg, zone_init, self.tables)
+        dt0 = initial_dt(self.grid, cfg.run.mcdt, cfg.physics.injection.v,
+                         length_scale=self.scales.L)
+        g = cfg.grid
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(int(cfg.run.seed))
+
+        def zf(*shape):
+            return torch.zeros(shape, dtype=torch.float32, device=dev)
+
+        def scal(v, dtype=torch.float32):
+            return torch.tensor(v, dtype=dtype, device=dev)
+
+        self.state = SimState(
+            zones=zones,
+            photons=PhotonArray.empty(cfg.run.n_slots, dev),
+            time=scal(0.0), dt=scal(dt0), dt_prev=scal(dt0),
+            ncycle=scal(0, torch.int32), key=gen,
+            ed_abs=zf(g.nr), ed_ref=zf(g.nr),
+            k_gg=zf(g.nz, g.nr, g.n_gg), dn_pp=zf(g.nz, g.nr, g.num_nt),
+            dne_pa=zf(g.nz, g.nr, g.num_nt), dnp_pa=zf(g.nz, g.nr, g.num_nt),
+        )
+        self.window_sources = build_window_sources(cfg, self.scales, dev)
+        self.src_static = self.window_sources.select(0.0, dt0, 0)
+        self.last_outputs: Optional[StepOutputs] = None
+
+    def step(self) -> StepOutputs:
+        self._sync_clock()
+        self.src_static = self.window_sources.select(
+            self._host_time, self._host_dt, self._host_ncycle)
+        self._state, out = _step_impl(
+            self._state, self.src_static, self.grid, self.tables, self.cfg,
+            self.scales, self._host_ncycle,
+        )
+        self._host_time += self._host_dt
+        self._host_dt_prev = self._host_dt
+        self._host_ncycle += 1
+        self.last_outputs = out
+        return out
+
+    def run(self, n_steps: int):
+        for _ in range(n_steps):
+            self.step()
+        return self.last_outputs
+
+    # ---------------- diagnostics -------------------------------------
+    def _check_event_overflow(self, out) -> int:
+        """Warn about escaping-photon records dropped beyond capacity."""
+        if getattr(self, "_overflow_checked", None) is out:
+            return getattr(self, "n_events_dropped", 0)
+        self._overflow_checked = out
+        counts = out.events.count.cpu().numpy().reshape(-1)
+        cap = out.events.data.shape[0] // counts.shape[0]
+        dropped = int(np.sum(np.maximum(counts - cap, 0)))
+        if dropped:
+            self.n_events_dropped = getattr(self, "n_events_dropped", 0) \
+                + dropped
+            warnings.warn(
+                f"step {int(self.state.ncycle)}: {dropped} escaping-photon "
+                f"event records dropped (buffer capacity {cap}); raise "
+                "RunConfig.event_capacity", RuntimeWarning, stacklevel=2,
+            )
+        return getattr(self, "n_events_dropped", 0)
+
+    def summary(self) -> str:
+        o = self.last_outputs
+        s = self.state
+        esc = float(torch.sum(o.tallies.fout)) * self.scales.E
+        alive = int(torch.sum(s.photons.alive))
+        self._check_event_overflow(o)
+        extras = ""
+        if int(o.tallies.n_rr):
+            extras += f" rr={int(o.tallies.n_rr)}"
+        if float(o.tallies.e_src_lost):
+            extras += (f" src_lost="
+                       f"{float(o.tallies.e_src_lost) * self.scales.E:.2e}")
+        if getattr(self, "n_events_dropped", 0):
+            extras += f" evt_dropped={self.n_events_dropped}"
+        if int(o.fp_incomplete):
+            extras += f" fp_incomplete={int(o.fp_incomplete)}"
+        if int(o.tallies.n_sct_overflow):
+            extras += f" sct_overflow={int(o.tallies.n_sct_overflow)}"
+        return (
+            f"cycle={int(s.ncycle)} t={float(s.time):.4e}s "
+            f"dt={float(s.dt):.3e}s census={alive} "
+            f"E_in={float(o.bingo) * self.scales.E:.4e} E_esc={esc:.4e} "
+            f"Te[0,0]={float(s.zones.tea[0, 0]):.2f}keV "
+            f"dT_max={float(o.dT_max):.3f}" + extras
+        )
+
+    def energy_audit(self) -> dict:
+        """E_add_up-style photon-side audit (update2d.f:1993-2078) in erg."""
+        o = self.last_outputs
+        t = o.tallies
+        scale = self.scales.E
+        census = float(torch.sum(t.ecens)) * scale
+        escaped = float(
+            torch.sum(t.erlk_inner) + torch.sum(t.erlk_outer)
+            + torch.sum(t.erlk_upper) + torch.sum(t.erlk_lower)
+        ) * scale
+        deposited = float(torch.sum(t.edep)) * scale
+        killed = float(t.e_killed) * scale
+        scatter_gain = float(t.e_scatter) * scale
+        src_lost = float(t.e_src_lost) * scale
+        pair_abs = float(t.e_pair_abs) * scale
+        absorbed = deposited - scatter_gain
+        e_in = float(o.bingo) * scale
+        e_rr = float(t.e_rr) * scale
+        avail = e_in - src_lost + scatter_gain - e_rr
+        return {
+            "input": e_in,
+            "census": census,
+            "escaped": escaped,
+            "absorbed": absorbed,
+            "scatter_gain": scatter_gain,
+            "killed": killed,
+            "src_lost": src_lost,
+            "pair_abs": pair_abs,
+            "rr": e_rr,
+            "n_rr": int(t.n_rr),
+            "events_dropped": self._check_event_overflow(o),
+            "balance": (census + escaped + absorbed + killed + pair_abs)
+            / avail if avail > 0 else float("nan"),
+        }
+
+
+def _step_impl(state: SimState, src: sourcing.SourceStatic, grid: Grid,
+               tables: Tables, cfg: SimConfig, scales: Scales,
+               ncycle: int) -> Tuple[SimState, StepOutputs]:
+    """One step. ``ncycle`` is the host mirror of ``state.ncycle``."""
+    g, phys, run = cfg.grid, cfg.physics, cfg.run
+    nz, nr = g.nz, g.nr
+    nzr = nz * nr
+    zones = state.zones
+    gen = state.key
+    dev = state.dt.device
+    f32, i32 = torch.float32, torch.int32
+    n = run.n_slots
+
+    # ---- 0. census replay: reset flight clocks (imcfield2d.f:117) -------
+    photons = state.photons._replace(dcen=torch.where(
+        state.photons.alive,
+        float(np.float32(scales.c)) * state.dt.to(f32), 0.0,
+    ))
+    zid = (torch.clamp(photons.jz, 0, nz - 1) * nr
+           + torch.clamp(photons.kr, 0, nr - 1))
+    ecens_prev = segment_sum(
+        torch.where(photons.alive, photons.w, 0.0), zid, nzr
+    ).reshape(nz, nr)
+
+    # ---- 1. zone pass (imcgen2d): B, emissivities, budget ---------------
+    B = equipartition_b(zones.ep_switch, zones.tea, zones.tna, zones.n_e,
+                        zones.f_pair, zones.B_field,
+                        tables.gamma_bar.forward)
+    zones = zones._replace(B_field=B)
+    l_min = torch.minimum(grid.dz, grid.dr) * torch.ones_like(grid.vol)
+    ve = volume_em(tables.e_ph, tables.gnt, zones.f_nt, zones.tea,
+                   zones.n_e, B, zones.amxwl, grid.vol, grid.zone_surf,
+                   l_min, state.dt, scales, f_pair=zones.f_pair)
+    nst_eff = cfg.source.nst * max(cfg.source.split, 1)
+    budget = sourcing.compute_budget(
+        src, ve.eloss_tot, ecens_prev, state.ed_abs,
+        grid.area_lower, grid.area_upper, grid.area_inner, grid.area_outer,
+        state.dt, state.dt_prev, max(nst_eff, 1), cfg.source.bias_cap,
+        scales.sigma_sb, dh_sentinel=bool(phys.dh_sentinel),
+    )
+
+    # census population control (weight-window roulette)
+    if run.census_rr:
+        u_rr = torch.rand(n, generator=gen, device=dev)
+        photons, e_rr, n_rr = census_roulette(
+            photons, u_rr, run.census_rr_hi, run.census_rr_lo,
+            n_reserve=budget.n_new,
+        )
+    else:
+        e_rr = torch.zeros((), dtype=f32, device=dev)
+        n_rr = torch.zeros((), dtype=i32, device=dev)
+    nph_raw = torch.zeros((nz, nr, g.n_gg), dtype=f32, device=dev)
+
+    # ---- 2. emit new photons --------------------------------------------
+    draws = sourcing.draw_emit_uniforms(gen, n, dev)
+    photons, e_src_lost = sourcing.emit(
+        photons, draws, budget, src, grid.r_edges, grid.z_edges,
+        grid.zone_surf, ve.eps_tot, ve.eps_th, ve.eloss_th, ve.eloss_tot,
+        tables.e_ph, state.dt, nz, nr, c_scaled=scales.c,
+    )
+
+    # ---- 3. tracking ----------------------------------------------------
+    sigma_zone = zone_sigma_table(
+        tables.sigma_e, zones.f_nt, tables.gnt, zones.n_e
+    ).reshape(nzr, -1).to(f32)
+    kappa_zone = ve.kappa_tot.reshape(nzr, -1).to(f32)
+    ctx = TrackContext(
+        r_edges=grid.r_edges.to(f32),
+        z_edges=grid.z_edges.to(f32),
+        opac_zone=torch.stack([sigma_zone, kappa_zone], dim=-1),
+        cdf_nt=zones.cdf_nt.reshape(nzr, -1).to(f32),
+        gnt=tables.gnt,
+        e_ph_log0=float(tables.e_ph_log0),
+        e_ph_dlog=float(tables.e_ph_dlog),
+        e_gg_log0=tables.e_gg_log0,
+        e_gg_dlog=tables.e_gg_dlog,
+        e_field_log0=torch.log(tables.e_field[0]),
+        e_field_dlog=torch.log(tables.e_field[1] / tables.e_field[0]),
+        hu=tables.hu,
+        mu_edges=tables.mu_edges,
+        lc_lo=tables.lc_lo,
+        lc_hi=tables.lc_hi,
+        tbbl_pos=src.tbb_lower > 0.0,
+        time=state.time,
+        dt=state.dt,
+        inv_c=float(np.float32(scales.inv_c)),
+    )
+    st = TrackStatics(
+        nz=nz, nr=nr, rmin_positive=g.r_min > 1e-10,
+        max_iters=run.max_flight_iters,
+        max_scatter_tries=run.max_scatter_tries,
+        weight_floor=cfg.source.weight_floor, spec_switch=phys.spec_switch,
+    )
+    tallies = Tallies.zeros(nz, nr, g.num_nt, g.nphfield, g.n_gg, g.nmu,
+                            g.nphtotal, g.nph_lc, device=dev)
+    events = EventBuffer.empty(run.event_capacity, device=dev)
+    tallies = tallies._replace(
+        e_src_lost=tallies.e_src_lost + e_src_lost,
+        e_rr=tallies.e_rr + e_rr,
+        n_rr=tallies.n_rr + n_rr,
+    )
+    n_tracked = torch.sum(photons.alive.to(i32), dtype=i32)
+    photons, tallies, events = transport_step(
+        photons, tallies, events, gen, ctx, st)
+    tallies = census_tally(photons, tallies, ctx, st)
+
+    # ---- 4. FP electron update (update2d) -------------------------------
+    zero = torch.zeros((), dtype=f32, device=dev)
+    zero_i = torch.zeros((), dtype=i32, device=dev)
+    if not phys.t_const:
+        fpr = fp_step(
+            zones, tallies.n_field, tables, grid.vol, float(g.z_max),
+            grid.dz, state.dt, state.time, ve.eloss_sy, phys, scales,
+            eloss_br=ve.eloss_br,
+        )
+        # only apply after the field is established (ncycle > 0)
+        apply = ncycle > 0
+        zones_new = (fpr.zones._replace(tna=zones.tna,
+                                        turb_lev=zones.turb_lev)
+                     if apply else zones)
+        dT_max = fpr.dT_max if apply else zero
+        e_el_old, e_el_new = fpr.e_el_old, fpr.e_el_new
+        fp_sub = fpr.substeps
+        fp_inc = fpr.incomplete if apply else zero_i
+    else:
+        zones_new = zones
+        dT_max, e_el_old, e_el_new = zero, zero, zero
+        fp_sub, fp_inc = zero_i, zero_i
+
+    # ---- 5. advance time (constant dt) -----------------------------------
+    new_state = state._replace(
+        zones=zones_new,
+        photons=photons,
+        time=state.time + state.dt,
+        dt_prev=state.dt,
+        ncycle=state.ncycle + 1,
+        ed_abs=tallies.ed_in - tallies.ed_ref,
+        ed_ref=tallies.ed_ref,
+    )
+    out = StepOutputs(
+        tallies=tallies, events=events, bingo=budget.bingo,
+        e_el_old=e_el_old, e_el_new=e_el_new, dT_max=dT_max,
+        fp_substeps=fp_sub, fp_incomplete=fp_inc, n_tracked=n_tracked,
+        nph_raw=nph_raw, nph_fit=nph_raw,
+    )
+    return new_state, out

@@ -1,0 +1,314 @@
+"""Per-step electron update (counterpart of ``compton2d_tpu.fp.update``):
+the Fokker-Planck solve of update2d.f vectorized over all zones.
+
+IC drift from the tallied radiation field (one float32 matmul against
+F_IC), synchrotron drift with the Razin-like suppression, hard-sphere
+stochastic acceleration, injection and escape; masked implicit substeps
+(Chang-Cooper + PCR) with the geometric x1.25 floor backoff for stiff
+zones, in a bounded loop whose condition is read on the host; the
+temperature from <gamma> through the gamma_bar table; the dT_max -> dt
+ladder and the effective nonthermal refit.
+
+Not ported: the pair source/sink terms (pair_switch) and the Coulomb
+drift (fp_include_coulomb); both raise.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from compton2d_tpu_torch import constants as cn
+from compton2d_tpu_torch.config import PhysicsConfig
+from compton2d_tpu_torch.units import Scales
+from compton2d_tpu_torch.fp.chang_cooper import chang_cooper_coeffs, pcr_solve
+from compton2d_tpu_torch.physics import electron_dist as ed
+from compton2d_tpu_torch.state import ZoneState
+from compton2d_tpu_torch.tables import Tables
+
+
+class FPResult(NamedTuple):
+    zones: ZoneState
+    dt_new: torch.Tensor      # () adapted next step
+    dT_max: torch.Tensor      # () max relative temperature change
+    e_el_old: torch.Tensor    # () total electron energy before [E]
+    e_el_new: torch.Tensor    # () after [E]
+    substeps: torch.Tensor    # () int32 substeps used
+    incomplete: torch.Tensor  # () int32 zones with t_fp < dt at the end
+
+
+def fp_step(
+    zones: ZoneState, n_field, tables: Tables, vol, z_max: float, dz, dt,
+    time, eloss_sy, phys: PhysicsConfig, scales: Scales,
+    eloss_br=None,
+) -> FPResult:
+    """All energies scaled by scales.E, volumes by scales.L^3."""
+    if phys.pair_switch:
+        raise NotImplementedError("fp_step: pair_switch is not ported yet")
+    if phys.fp_include_coulomb:
+        raise NotImplementedError(
+            "fp_step: fp_include_coulomb is not ported yet")
+    nz, nr, num_nt = zones.f_nt.shape
+    Z = nz * nr
+    f32, i32 = torch.float32, torch.int32
+    dev = zones.f_nt.device
+    gnt = tables.gnt.to(f32)
+    gamma = gnt + 1.0
+    dg = torch.diff(gnt)
+    wdg = torch.cat([dg, dg[-1:] * 0.0])
+    dt32 = torch.as_tensor(dt, dtype=f32, device=dev)
+    time32 = torch.as_tensor(time, dtype=f32, device=dev)
+
+    t_esc = phys.r_esc * z_max / cn.C_LIGHT
+    t_acc = phys.r_acc * z_max / cn.C_LIGHT
+    k_mec2_vol = scales.mec2_vol
+    k_dgic = scales.nfield_to_dgic
+    k_dT = 6.25e8 * scales.E / (1.5 * scales.L3)
+    k_coul = 1.5 * 1.7386e-26 * scales.L3 / scales.E
+
+    f_old = zones.f_nt.reshape(Z, num_nt).to(f32)
+    sum_p = torch.clamp_min(
+        torch.sum(f_old * wdg, dim=-1, keepdim=True), 1e-30)
+    f_old = f_old / sum_p
+    n_p = zones.n_e.reshape(Z).to(f32)
+    f_pair = zones.f_pair.reshape(Z).to(f32)
+    ne = n_p * (1.0 + f_pair)
+    n_lept = ne + n_p * f_pair
+    volume = vol.reshape(Z).to(f32)
+    B = torch.clamp_min(zones.B_field.reshape(Z).to(f32), 1e-20)
+    tea0 = zones.tea.reshape(Z).to(f32)
+    tna = zones.tna.reshape(Z).to(f32)
+    tlev = zones.turb_lev.reshape(Z).to(f32)
+
+    def e_tot(f, nloc):
+        return torch.sum(f * gamma * wdg, dim=-1) * (
+            nloc * (k_mec2_vol * volume))
+
+    e_el_old = torch.sum(e_tot(f_old, ne))
+
+    nf = n_field.reshape(Z, -1).to(f32)
+    dg_ic = -torch.matmul(nf, tables.f_ic.T) * (k_dgic / volume[:, None])
+    f_sy = 1.058e-15 * B * B / cn.MEC2_ERG
+    dg_A = gamma[None, :] / t_acc
+    disp_A = gamma[None, :] * gamma[None, :] / (2.0 * t_acc)
+    dg_br = None
+    if phys.fp_include_bremsstrahlung and eloss_br is not None:
+        sum_g11 = torch.sum(gamma ** 1.1 * f_old * wdg, dim=-1)
+        f_br = eloss_br.reshape(Z).to(f32) / torch.clamp_min(
+            (k_mec2_vol * volume) * dt32 * n_lept * sum_g11, 1e-30)
+        dg_br = -f_br[:, None] * gamma[None, :] ** 1.1
+
+    th_p = tna / 9.382e5
+    lnL = phys.lnL
+    inj = phys.injection
+    jrow_flat = torch.arange(nz, dtype=f32, device=dev).repeat_interleave(nr)
+    slab_vol = torch.sum(volume) / nz
+    eloss_sy_z = eloss_sy.reshape(Z).to(f32)
+
+    def cool_heat_rates(f, th_e, te):
+        g_av = tables.gamma_bar.forward(torch.clamp_min(th_e, 1e-6))
+        gamma_R = 2.1e-3 * torch.sqrt(n_lept) / (B * torch.sqrt(g_av))
+        hr_th_c = -torch.sum(dg_ic * f * wdg, dim=-1) * (
+            (k_mec2_vol * volume) * n_lept)
+        y = gamma_R / g_av
+        hr_th_sy = torch.where(
+            y < 90.0,
+            -eloss_sy_z / (dt32 * torch.exp(torch.clamp_max(y, 90.0))),
+            0.0,
+        )
+        tsum = th_e + th_p
+        h_T = 0.79788 * (2.0 * (tsum * tsum) + 2.0 * tsum + 1.0) / (
+            torch.clamp_min(tsum, 1e-12) ** 1.5
+            * (1.0 + 1.875 * th_e + 0.8203 * (th_e * th_e))
+        )
+        hr_th_coul = (k_coul * n_p) * (volume * n_lept) * lnL * h_T * (
+            tna - te)
+        hr_th_A = torch.clamp_min(tlev * hr_th_coul, 1e-30)
+        return hr_th_sy + hr_th_c + hr_th_A, gamma_R
+
+    gauss_prof = torch.exp(
+        -((gamma - inj.gauss_g) * (gamma - inj.gauss_g))
+        / (2.0 * inj.gauss_sigma**2)
+    )
+    gauss_prof[-1] = 0.0
+
+    it = 0
+    t_fp = torch.zeros(Z, dtype=f32, device=dev)
+    f = f_old
+    th_e = tea0 / cn.EMASS_KEV
+    npz, nlept_z = n_p, n_lept
+    grow = torch.ones(Z, dtype=f32, device=dev)
+    done = torch.zeros(Z, dtype=torch.bool, device=dev)
+    # bounded substep loop; the condition is read on the host
+    while it < phys.fp_max_substeps and not bool(torch.all(done)):
+        te = th_e * cn.EMASS_KEV
+        hr_total, gamma_R = cool_heat_rates(f, th_e, te)
+        dT_tot = (k_dT * dt32) * hr_total / torch.clamp_min(
+            volume * n_lept, 1e-30)
+        f_imp = torch.clamp(
+            cn.DF_IMPLICIT * te / torch.clamp_min(torch.abs(dT_tot), 1e-30),
+            0.0, cn.DF_T,
+        )
+        d_t = f_imp * dt32
+        # stiff-zone floor, backing off x1.25 per floored substep
+        floor = (1.001 * dt32 / phys.fp_max_substeps) * grow
+        floored = d_t < floor
+        d_t = torch.maximum(d_t, floor)
+        grow = torch.where(floored & ~done, grow * 1.25, grow)
+        last = d_t >= dt32 - t_fp
+        d_t = torch.where(last, dt32 - t_fp, d_t)
+        d_t = torch.clamp_min(d_t, 1e-30)
+
+        # ---- injection (update2d.f:1229-1301) ---------------------------
+        n_inject = torch.zeros(Z, dtype=f32, device=dev)
+        f_inj = f
+        if inj.pickup:
+            psum = torch.clamp_min(torch.sum(gauss_prof * wdg), 1e-30)
+            inj_rho = inj.pickup_rate * d_t
+            f_inj = f_inj + (inj_rho[:, None] * gauss_prof[None, :] / psum
+                             / torch.clamp_min(ne, 1e-30)[:, None])
+            n_inject = n_inject + inj_rho
+        if inj.switch != 0:
+            if inj.distribution == 1:
+                prof = gauss_prof[None, :].expand(Z, num_nt)
+            else:
+                if inj.g2var_switch:
+                    ttz = (time32 + t_fp - inj.t_start).to(f32)
+                    g2z = inj.g2 * torch.pow(10.0, torch.clamp(
+                        ttz * float(np.float32(inj.v / z_max)), 0.0, 6.0))
+                    yv = gamma[None, :] / g2z[:, None]
+                else:
+                    yv = (gamma[None, :] / inj.g2).expand(Z, num_nt)
+                prof = torch.where(
+                    (gamma[None, :] > inj.g1) & (yv < 100.0),
+                    gamma[None, :] ** (-inj.p)
+                    * torch.exp(-torch.clamp_max(yv, 100.0)),
+                    0.0,
+                )
+                prof = prof.clone()
+                prof[:, -1] = 0.0
+            inj_sum = torch.clamp_min(
+                torch.sum(prof * wdg[None, :], dim=-1, keepdim=True), 1e-30)
+            inj_e_mean = torch.sum(
+                prof * gamma[None, :] * wdg[None, :], dim=-1) / inj_sum[:, 0]
+            t_row = dz * float(np.float32(scales.L)) / float(
+                np.float32(inj.v))
+            tt = time32 + t_fp - inj.t_start
+            active = (tt > t_row * jrow_flat) & (tt < t_row * (jrow_flat + 1))
+            lum_fold = float(inj.luminosity) / (8.186e-7 * scales.L3)
+            inj_rate = lum_fold / torch.clamp_min(
+                inj_e_mean * slab_vol, 1e-30)
+            ok_inj = inj_sum[:, 0] > 1e-20
+            inj_rho = torch.where(active & ok_inj, inj_rate * d_t, 0.0)
+            f_inj = f_inj + (inj_rho[:, None] * prof / inj_sum
+                             / torch.clamp_min(ne, 1e-30)[:, None])
+            n_inject = n_inject + inj_rho
+        npz = npz + n_inject
+        nlept_z = nlept_z + n_inject
+
+        # ---- escape (update2d.f:1309-1313) ------------------------------
+        esc_fac = t_esc / (t_esc + d_t)
+        npz = npz * esc_fac
+        nlept_z = nlept_z * esc_fac
+
+        # ---- operator (active terms, update2d.f:1048-1049) --------------
+        y_sy = gamma_R[:, None] / gamma[None, :]
+        dg_sy = torch.where(
+            y_sy < 100.0,
+            -f_sy[:, None] * (gamma[None, :] * gamma[None, :] - 1.0)
+            / torch.exp(torch.clamp_max(y_sy, 100.0)),
+            -1e-50,
+        )
+        dgdt = dg_sy + dg_ic + dg_A
+        if dg_br is not None:
+            dgdt = dgdt + dg_br
+        a, b, c = chang_cooper_coeffs(gnt, dgdt, disp_A.expand(Z, num_nt),
+                                      d_t, t_esc)
+        f_new = pcr_solve(a, b, c, f_inj)
+        f_new[..., 0] = 0.0
+        f_new[..., -1] = 0.0
+        s = torch.clamp_min(
+            torch.sum(f_new * wdg, dim=-1, keepdim=True), 1e-30)
+        f_new = f_new / s
+
+        # ---- temperature from <gamma> (update2d.f:1440-1468) ------------
+        gbar = torch.sum(gamma * f_new * wdg, dim=-1)
+        th_new = tables.gamma_bar.inverse(gbar)
+
+        upd = ~done
+        f = torch.where(upd[:, None], f_new, f)
+        th_e = torch.where(upd, th_new, th_e)
+        t_fp = torch.where(upd, torch.where(last, dt32, t_fp + d_t), t_fp)
+        done = t_fp >= dt32
+        it += 1
+
+    incomplete = torch.sum((t_fp < dt32).to(i32), dtype=i32)
+    te_new = torch.clamp(th_e * cn.EMASS_KEV, phys.temp_min, phys.temp_max)
+    te_new = torch.where(tna > 1.0, te_new, tea0)
+    dT = torch.abs(te_new - tea0) / torch.clamp_min(te_new, 1e-30)
+    dT_max = torch.max(dT)
+    np_fin = npz
+    e_el_new = torch.sum(e_tot(f, np_fin * (1.0 + f_pair)))
+    dt_new = torch.where(
+        dT_max < 0.2 * cn.DF_T, 3.0 * dt32,
+        torch.where(
+            dT_max < 0.75 * cn.DF_T, 1.1 * dt32,
+            torch.where(
+                dT_max > 5.0 * cn.DF_T, 0.33 * dt32,
+                torch.where(dT_max > 1.25 * cn.DF_T, 0.75 * dt32, dt32),
+            ),
+        ),
+    )
+
+    # ---- effective nonthermal parameters (update2d.f:1654-1736) ---------
+    idx = torch.arange(num_nt, device=dev)
+    interior = (idx >= 4) & (idx < num_nt - 5)
+    above_lo = interior & (f > 1e-10)
+    i_nt = torch.argmax(above_lo.to(i32), dim=-1)
+    i_nt = torch.where(torch.any(above_lo, dim=-1), i_nt, 4)
+    above_hi = interior & (f > 1e-15)
+    i_hi = num_nt - 1 - torch.argmax(
+        torch.flip(above_hi, dims=[-1]).to(i32), dim=-1)
+    i_hi = torch.where(torch.any(above_hi, dim=-1), i_hi, num_nt - 6)
+    gmin_eff = gamma[i_nt]
+    gmax_eff = gamma[i_hi]
+    below = idx[None, :] < i_nt[:, None]
+    sum_th = torch.sum(torch.where(below, f * wdg, 0.0), dim=-1)
+    sum_all = torch.clamp_min(torch.sum(f * wdg, dim=-1), 1e-30)
+    amxwl_eff = torch.clamp(sum_th / sum_all, 0.0, 1.0)
+    sum_e_mean = torch.sum(gamma * f * wdg, dim=-1) / sum_all
+    p_cand = torch.as_tensor(
+        np.arange(0.1, 10.01, 0.05, dtype=np.float32), device=dev)
+    nt_mask = (idx[None, :] >= i_nt[:, None]) & (idx < num_nt - 1)
+    y_c = gamma[None, :] / gmax_eff[:, None]
+    base = torch.where(nt_mask & (y_c < 90.0),
+                       torch.exp(-torch.clamp_max(y_c, 90.0)) * wdg, 0.0)
+    lg = torch.log(gamma)
+    gp = torch.exp(-p_cand[:, None] * lg[None, :])
+    denom_p = torch.matmul(base, gp.T) + 1e-30
+    numer_p = torch.matmul(base * gamma[None, :], gp.T)
+    miss = torch.abs(numer_p / denom_p - sum_e_mean[:, None])
+    p_eff = p_cand[torch.argmin(miss, dim=-1)]
+    pure_th = amxwl_eff > 0.9999
+    gmin_eff = torch.where(pure_th, zones.gmin.reshape(Z), gmin_eff)
+    gmax_eff = torch.where(pure_th, zones.gmax.reshape(Z), gmax_eff)
+    p_eff = torch.where(pure_th, zones.p_nth.reshape(Z), p_eff)
+
+    f_nt_new = f.reshape(nz, nr, num_nt)
+    zones_new = zones._replace(
+        tea=te_new.reshape(nz, nr),
+        n_e=np_fin.reshape(nz, nr),
+        f_nt=f_nt_new,
+        cdf_nt=ed.build_cdf(f_nt_new, gnt),
+        gmin=gmin_eff.reshape(nz, nr),
+        gmax=gmax_eff.reshape(nz, nr),
+        p_nth=p_eff.reshape(nz, nr),
+        amxwl=torch.where(pure_th, 1.0, amxwl_eff).reshape(nz, nr),
+    )
+    return FPResult(
+        zones=zones_new, dt_new=dt_new, dT_max=dT_max, e_el_old=e_el_old,
+        e_el_new=e_el_new,
+        substeps=torch.tensor(it, dtype=i32, device=dev),
+        incomplete=incomplete,
+    )

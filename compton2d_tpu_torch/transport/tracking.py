@@ -1,0 +1,294 @@
+"""Photon tracking: the kernel's outer round loop, boundary leaks and the
+census tallies (counterpart of ``compton2d_tpu.transport.tracking`` on the
+Pallas path with ``cr_sent=0``).
+
+Each outer round launches the flight kernel (``transport.flight``) over
+all slots; a kernel entry ends only at census, leak or the iteration
+budget. Lanes frozen with FLAG_LEAK are handed to :func:`_leak`
+(escape tallies and event records), and the kernel's per-lane scatter
+logs are histogrammed into e_ic / n_esp. The reference's one-hot matmul
+tallies (``zone_accum`` / ``hist2d_accum``) become deterministic segment
+sums, and its compare-count binning becomes ``searchsorted``.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import NamedTuple, Tuple
+
+import torch
+
+from compton2d_tpu_torch.state import EventBuffer, PhotonArray, Tallies
+from compton2d_tpu_torch.transport import flight
+
+
+@dataclass(frozen=True)
+class TrackStatics:
+    """Static tracking configuration."""
+
+    nz: int
+    nr: int
+    rmin_positive: bool = False
+    max_iters: int = 512
+    max_scatter_tries: int = 64
+    weight_floor: float = 1.0e-10
+    upper_escape_mu_cut: float = 0.98   # imcleak2d.f:303 event filter
+    spec_switch: int = 0                # imcleak2d.f:53-58
+
+
+class TrackContext(NamedTuple):
+    """Per-step inputs for the tracker (fields as in the reference; the
+    reflection and pair fields of the reference are not needed with
+    cr_sent=0 and pair_switch off)."""
+
+    r_edges: torch.Tensor     # (nr+1,) f32
+    z_edges: torch.Tensor     # (nz+1,) f32
+    opac_zone: torch.Tensor   # (nz*nr, n_vol, 2) [sigma, kappa] [1/L]
+    cdf_nt: torch.Tensor      # (nz*nr, num_nt)
+    gnt: torch.Tensor         # (num_nt,)
+    e_ph_log0: float
+    e_ph_dlog: float
+    e_gg_log0: torch.Tensor
+    e_gg_dlog: torch.Tensor
+    e_field_log0: torch.Tensor
+    e_field_dlog: torch.Tensor
+    hu: torch.Tensor
+    mu_edges: torch.Tensor
+    lc_lo: torch.Tensor
+    lc_hi: torch.Tensor
+    tbbl_pos: torch.Tensor    # (nr,) bool
+    time: torch.Tensor        # () f32 [s]
+    dt: torch.Tensor          # () f32 [s]
+    inv_c: float              # seconds per scaled length
+
+
+def segment_sum(vals: torch.Tensor, idx: torch.Tensor,
+                n_seg: int) -> torch.Tensor:
+    """Deterministic sum of ``vals`` (n,) or (n, k) into ``n_seg``
+    segments by ``idx`` (all in [0, n_seg)). A stable sort groups each
+    segment's values in slot order and ``segment_reduce`` adds every
+    segment in a fixed order, so equal inputs give bitwise-equal sums
+    (no float atomics)."""
+    idx = idx.long()
+    order = torch.argsort(idx, stable=True)
+    lengths = torch.bincount(idx, minlength=n_seg)
+    return torch.segment_reduce(vals[order], "sum", lengths=lengths,
+                                axis=0, unsafe=True, initial=0.0)
+
+
+def hist2d(vals, zid, nzr: int, bins, n_bins: int) -> torch.Tensor:
+    """(nzr, n_bins) sums of vals by (zid, bins), deterministic."""
+    flat = zid.long() * n_bins + bins.long()
+    return segment_sum(vals, flat, nzr * n_bins).reshape(nzr, n_bins)
+
+
+def loggrid_bin(e, log0, dlog, n_bins: int):
+    """Bin on the log grid starting at exp(log0) with ratio exp(dlog);
+    photons below one ratio under the first point are out of range."""
+    x = (torch.log(torch.clamp_min(e, 1e-30)) - log0) / dlog
+    b = torch.clamp(torch.floor(x).to(torch.int32), 0, n_bins - 1)
+    return b, x > -1.0
+
+
+def spectral_bin(hu, e):
+    """Spectrum bin index, -1 outside [hu_0, hu_N] (imcleak2d.f:342-371)."""
+    i = torch.searchsorted(hu, e.to(hu.dtype).contiguous()).to(torch.int32) - 1
+    valid = (e > hu[0] * 1.000001) & (e < hu[-1] * 0.999999)
+    return torch.where(valid, torch.clamp(i, 0, hu.shape[0] - 2), -1).to(
+        torch.int32
+    )
+
+
+def lc_bin(lc_lo, lc_hi, e):
+    """First light-curve band containing e, -1 if none
+    (imcleak2d.f:375-386)."""
+    e_c = e.to(lc_lo.dtype)
+    m = (e_c[:, None] > lc_lo[None, :]) & (e_c[:, None] <= lc_hi[None, :])
+    first = torch.argmax(m.to(torch.int32), dim=1).to(torch.int32)
+    return torch.where(torch.any(m, dim=1), first, -1).to(torch.int32)
+
+
+def mu_bin(mu_edges, mu):
+    """Angular bin: first n with mu <= mu_edges[n] (imcleak2d.f:390-398)."""
+    i = torch.searchsorted(mu_edges, mu.to(mu_edges.dtype).contiguous())
+    return torch.clamp(i, 0, mu_edges.shape[0] - 1).to(torch.int32)
+
+
+def draw_seeds(gen: torch.Generator, n_tiles: int, device) -> torch.Tensor:
+    """Per-tile int32 kernel seeds (uniform over all 2^32 bit patterns)."""
+    s = torch.randint(0, 1 << 32, (n_tiles,), generator=gen, device=device,
+                      dtype=torch.int64)
+    return torch.where(s >= (1 << 31), s - (1 << 32), s).to(torch.int32)
+
+
+def transport_step(
+    photons: PhotonArray, tallies: Tallies, events: EventBuffer,
+    gen: torch.Generator, ctx: TrackContext, st: TrackStatics,
+) -> Tuple[PhotonArray, Tallies, EventBuffer]:
+    """Track every photon to census, escape or absorption: outer rounds
+    of the flight kernel with the leaks handled between rounds. The
+    rounds stop once the accumulated kernel iterations reach max_iters,
+    so flight iterations are bounded by 2*max_iters; stragglers go to
+    census as they are."""
+    n = photons.n_slots
+    num_nt = ctx.cdf_nt.shape[1]
+    ftab = flight.build_flight_tables(
+        ctx.opac_zone, ctx.cdf_nt, ctx.gnt, ctx.r_edges, ctx.z_edges,
+        ctx.e_ph_log0, ctx.e_ph_dlog,
+    )
+    ph, tl, ev = photons, tallies, events
+    rnd, it_tot = 0, 0
+    while (rnd < st.max_iters and it_tot < st.max_iters
+           and bool(torch.any(ph.alive & (ph.dcen > 0.0)))):
+        seeds = draw_seeds(gen, n // flight.TILE, ph.e.device)
+        res = flight.flight_step(
+            ph.e, ph.w, ph.w0, ph.r, ph.z, ph.mu, ph.cphi, ph.sphi,
+            ph.dcen, ph.jz, ph.kr, ph.alive, ftab, seeds,
+            nz=st.nz, nr=st.nr, weight_floor=float(st.weight_floor),
+            max_iters=int(st.max_iters),
+            max_tries=int(st.max_scatter_tries),
+        )
+        ph = ph._replace(
+            e=res.e, w=res.w, r=res.r, z=res.z, mu=res.mu, cphi=res.cphi,
+            sphi=res.sphi, dcen=res.dcen, jz=res.jz, kr=res.kr,
+            alive=res.alive,
+        )
+        # e_ic / n_esp from the per-lane event logs; events past K_LOG
+        # keep their energy in edep / e_scatter and are counted here
+        logged = res.iglog.reshape(-1) >= 0
+        ig = torch.where(logged, res.iglog.reshape(-1), 0)
+        de = torch.where(logged, res.delog.reshape(-1), 0.0)
+        tl = tl._replace(
+            edep=tl.edep + res.tally[0].reshape(st.nz, st.nr),
+            prdep=tl.prdep + res.tally[1].reshape(st.nz, st.nr),
+            e_killed=tl.e_killed + res.ekill,
+            e_scatter=tl.e_scatter + res.esct,
+            e_pair_abs=tl.e_pair_abs + res.epair,
+            n_sct_overflow=tl.n_sct_overflow + torch.sum(
+                torch.clamp_min(res.sct_cnt - flight.K_LOG, 0),
+                dtype=torch.int32,
+            ),
+            e_ic=tl.e_ic + segment_sum(de, ig, num_nt),
+            n_esp=tl.n_esp + segment_sum(logged.to(torch.float32), ig,
+                                         num_nt),
+        )
+        leak_mask = (res.flag == flight.FLAG_LEAK) & ph.alive
+        if bool(torch.any(leak_mask)):
+            ph, tl, ev = _leak(ph, tl, ev, leak_mask, res.jn, res.kn, ctx, st)
+        rnd += 1
+        it_tot += res.it_used
+    tl = tl._replace(trk_rounds=tl.trk_rounds + rnd)
+    ph = ph._replace(dcen=torch.where(ph.alive, 0.0, ph.dcen))
+    return ph, tl, ev
+
+
+def _leak(ph: PhotonArray, tl: Tallies, ev: EventBuffer, mask, jnew, knew,
+          ctx: TrackContext, st: TrackStatics):
+    """Boundary handler (imcleak2d.f) for cr_sent=0: escapes through the
+    outer, upper and lower boundaries, the inner boundary (absorbing when
+    r_min > 0, a transparent axis otherwise), and the event records."""
+    n = ph.n_slots
+    where = torch.where
+    at_inner = mask & (knew < 0)
+    at_outer = mask & (knew >= st.nr)
+    at_lower = mask & (jnew < 0) & ~at_inner & ~at_outer
+    at_upper = mask & (jnew >= st.nz) & ~at_inner & ~at_outer
+    jz_c = torch.clamp(ph.jz, 0, st.nz - 1)
+    kr_c = torch.clamp(ph.kr, 0, st.nr - 1)
+
+    if st.rmin_positive:
+        tl = tl._replace(erlk_inner=tl.erlk_inner + segment_sum(
+            where(at_inner, ph.w, 0.0), jz_c, st.nz))
+        die_inner = at_inner
+    else:
+        # transparent axis: point outward, stay in zone 0
+        ph = ph._replace(
+            cphi=where(at_inner, 1.0, ph.cphi),
+            sphi=where(at_inner, 1e-6, ph.sphi),
+            kr=where(at_inner, 0, ph.kr),
+        )
+        die_inner = torch.zeros(n, dtype=torch.bool, device=mask.device)
+    tl = tl._replace(
+        erlk_outer=tl.erlk_outer + segment_sum(
+            where(at_outer, ph.w, 0.0), jz_c, st.nz),
+        erlk_upper=tl.erlk_upper + segment_sum(
+            where(at_upper, ph.w, 0.0), kr_c, st.nr),
+        erlk_lower=tl.erlk_lower + segment_sum(
+            where(at_lower, ph.w, 0.0), kr_c, st.nr),
+        ed_in=tl.ed_in + segment_sum(
+            where(at_lower & ctx.tbbl_pos[kr_c.long()], ph.w, 0.0),
+            kr_c, st.nr),
+    )
+
+    escaping = at_outer | at_lower | at_upper | die_inner
+    record = (at_outer | at_lower | at_upper) & ~(
+        at_upper & (ph.mu >= st.upper_escape_mu_cut)
+    )
+    f32 = torch.float32
+    t_bound = (ctx.time.to(f32) + ctx.dt.to(f32)) - ctx.inv_c * ph.dcen
+
+    sp = spectral_bin(ctx.hu, ph.e)
+    lc = lc_bin(ctx.lc_lo, ctx.lc_hi, ph.e)
+    mb = mu_bin(ctx.mu_edges, ph.mu)
+    w_tal = where(record, ph.w, 0.0)
+    if st.spec_switch == 1:
+        w_sp = where(at_upper | at_lower, ph.w, 0.0)
+    else:
+        w_sp = w_tal
+    nmu = tl.fout.shape[0]
+    tl = tl._replace(
+        fout=tl.fout + hist2d(
+            where(sp >= 0, w_sp, 0.0), mb, nmu,
+            torch.clamp_min(sp, 0), tl.fout.shape[1]),
+        edout=tl.edout + hist2d(
+            where(lc >= 0, w_tal, 0.0) / ctx.dt, mb, nmu,
+            torch.clamp_min(lc, 0), tl.edout.shape[1]),
+    )
+
+    # event records (imcleak2d.f:105 format), in slot order
+    phi = torch.atan2(ph.sphi, ph.cphi)
+    rec = torch.stack([t_bound, ph.e, ph.w, ph.r, ph.z, ph.mu, phi], dim=1)
+    rec_i = record.to(torch.int32)
+    cap = ev.data.shape[0]
+    idx = ev.count + torch.cumsum(rec_i, dim=0, dtype=torch.int32) - 1
+    write = record & (idx < cap)
+    # rows past capacity (and non-records) land in a scratch row
+    data = torch.cat([ev.data, ev.data.new_zeros((1, 7))], dim=0)
+    data[where(write, idx, cap).long()] = rec
+    ev = ev._replace(
+        data=data[:cap],
+        count=ev.count + torch.sum(rec_i, dtype=torch.int32),
+    )
+    ph = ph._replace(alive=ph.alive & ~(escaping | die_inner))
+    return ph, tl, ev
+
+
+def census_tally(photons: PhotonArray, tallies: Tallies, ctx: TrackContext,
+                 st: TrackStatics) -> Tallies:
+    """Census tallies over the surviving photons (imctrk2d.f:528-556):
+    ecens/npcen per zone and the scaled radiation-field and gamma-gamma
+    histograms n_field = sum(w / E) per (zone, bin)."""
+    alive = photons.alive
+    nzr = st.nz * st.nr
+    zid = (torch.clamp(photons.jz, 0, st.nz - 1) * st.nr
+           + torch.clamp(photons.kr, 0, st.nr - 1))
+    w = torch.where(alive, photons.w, 0.0)
+    cen2 = segment_sum(
+        torch.stack([w, torch.where(alive, 1.0, 0.0).to(w.dtype)], dim=1),
+        zid, nzr,
+    )
+    counts = torch.where(alive, w / torch.clamp_min(photons.e, 1e-30), 0.0)
+    nphf = tallies.n_field.shape[-1]
+    fbin, in_field = loggrid_bin(photons.e, ctx.e_field_log0,
+                                 ctx.e_field_dlog, nphf)
+    n_field = tallies.n_field.reshape(nzr, nphf) + hist2d(
+        torch.where(in_field, counts, 0.0), zid, nzr, fbin, nphf)
+    ngg = tallies.n_ph.shape[-1]
+    gbin, in_gg = loggrid_bin(photons.e, ctx.e_gg_log0, ctx.e_gg_dlog, ngg)
+    n_ph = tallies.n_ph.reshape(nzr, ngg) + hist2d(
+        torch.where(in_gg, counts, 0.0), zid, nzr, gbin, ngg)
+    return tallies._replace(
+        ecens=(tallies.ecens.reshape(-1) + cen2[:, 0]).reshape(st.nz, st.nr),
+        npcen=(tallies.npcen.reshape(-1) + cen2[:, 1]).reshape(st.nz, st.nr),
+        n_field=n_field.reshape(st.nz, st.nr, nphf),
+        n_ph=n_ph.reshape(st.nz, st.nr, ngg),
+    )

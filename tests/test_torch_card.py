@@ -1,0 +1,100 @@
+"""The flight kernel against its plain PyTorch version on a CUDA card.
+
+These tests need the card and skip without one. They import neither jax
+nor the JAX package, so they also run on a machine without jax:
+
+    python3 -m pytest --noconftest tests/test_torch_card.py -q
+"""
+import numpy as np
+import pytest
+import torch
+
+from compton2d_tpu_torch.physics.electron_dist import gnt_grid
+from compton2d_tpu_torch.tables import e_field_grid
+from compton2d_tpu_torch.transport import flight
+
+torch.set_num_threads(2)
+pytestmark = pytest.mark.cuda
+
+NZ, NR, N, N_VOL, NUM_NT = 4, 3, 4 * flight.TILE, 64, 50
+FIELDS = ("e", "w", "w0", "r", "z", "mu", "cphi", "sphi", "dcen", "jz",
+          "kr", "alive")
+INTS = ("jz", "kr", "alive", "mode", "flag", "jn", "kn", "sct_cnt")
+FLOATS = ("e", "w", "r", "z", "mu", "cphi", "sphi", "dcen")
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+def _inputs(dev, seed=0):
+    rng = np.random.default_rng(seed)
+    nzr = NZ * NR
+    e_ph = e_field_grid(N_VOL).astype(np.float32)
+    gnt = gnt_grid(NUM_NT).astype(np.float32)
+    opac = np.stack([
+        rng.uniform(2.0, 8.0, (nzr, 1)) * np.ones((1, N_VOL)),
+        rng.uniform(0.0, 0.1, (nzr, 1)) * np.ones((1, N_VOL)),
+    ], axis=-1)
+    pdf = np.exp(-gnt[None, :] / rng.uniform(0.05, 0.4, (nzr, 1)))
+    cdf = np.cumsum(pdf, axis=1) / pdf.sum(axis=1, keepdims=True)
+
+    def t(a, dtype=torch.float32):
+        return torch.as_tensor(np.asarray(a), device=dev).to(dtype)
+
+    tables = flight.build_flight_tables(
+        t(opac), t(cdf), t(gnt), t(np.linspace(0, 1, NR + 1)),
+        t(np.linspace(0, 1, NZ + 1)), float(np.log(e_ph[0])),
+        float(np.log(e_ph[1] / e_ph[0])))
+    jz, kr = rng.integers(0, NZ, N), rng.integers(0, NR, N)
+    phi = rng.uniform(0, 2 * np.pi, N)
+    ph = dict(
+        e=t(10.0 ** rng.uniform(-2, 2, N)), w=t(np.ones(N)),
+        w0=t(np.ones(N)), r=t((kr + rng.uniform(0.01, 0.99, N)) / NR),
+        z=t((jz + rng.uniform(0.01, 0.99, N)) / NZ),
+        mu=t(rng.uniform(-1, 1, N)), cphi=t(np.cos(phi)),
+        sphi=t(np.sin(phi)), dcen=t(rng.uniform(0.05, 0.5, N)),
+        jz=t(jz, torch.int32), kr=t(kr, torch.int32),
+        alive=t(rng.uniform(size=N) < 0.9, torch.bool))
+    seeds = t(rng.integers(-2**31, 2**31, N // flight.TILE), torch.int32)
+    return [ph[k] for k in FIELDS], tables, seeds
+
+
+def _run(fn, args, tables, seeds, max_iters):
+    return fn(*args, tables, seeds, nz=NZ, nr=NR, weight_floor=1e-10,
+              max_iters=max_iters, max_tries=64)
+
+
+def test_kernel_one_iteration_lane_for_lane(card):
+    """Integers exact; floats rtol 1e-5, atol 1e-6 (last-bit differences
+    between the kernel's math and torch's CUDA ops)."""
+    args, tables, seeds = _inputs(card)
+    before = flight.LAUNCHES
+    k = _run(flight.flight_step, args, tables, seeds, 1)
+    assert flight.LAUNCHES == before + 1
+    p = _run(flight.flight_step_reference, args, tables, seeds, 1)
+    for name in INTS:
+        assert torch.equal(getattr(k, name).long(),
+                           getattr(p, name).long()), name
+    for name in FLOATS:
+        torch.testing.assert_close(getattr(k, name), getattr(p, name),
+                                   rtol=1e-5, atol=1e-6)
+
+
+def test_kernel_many_iterations_and_repeatable(card):
+    """64 iterations: >= 99% of lanes with identical integer state, and
+    two launches bitwise equal."""
+    args, tables, seeds = _inputs(card, seed=1)
+    k = _run(flight.flight_step, args, tables, seeds, 64)
+    p = _run(flight.flight_step_reference, args, tables, seeds, 64)
+    same = torch.ones(N, dtype=torch.bool, device=card)
+    for name in INTS:
+        same &= getattr(k, name).long() == getattr(p, name).long()
+    assert float(same.float().mean()) >= 0.99
+    assert float(k.sct_cnt.float().mean()) > 0.5
+    k2 = _run(flight.flight_step, args, tables, seeds, 64)
+    for a, b in zip(k, k2):
+        assert torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b

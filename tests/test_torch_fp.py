@@ -1,0 +1,134 @@
+"""The port's Fokker-Planck update against the JAX reference: the
+Chang-Cooper coefficients, the PCR solve (and the Thomas oracle), and
+``fp_step`` from zone state carried over from a reference Simulation
+(``compton2d_tpu_torch.convert``) with the same radiation field, rtol 1e-4.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from compton2d_tpu import examples as jex
+from compton2d_tpu.fp import chang_cooper as jcc
+from compton2d_tpu.fp.update import fp_step as j_fp_step
+from compton2d_tpu.physics.emissivity import volume_em as j_volume_em
+from compton2d_tpu_torch import convert
+from compton2d_tpu_torch import examples as pex
+from compton2d_tpu_torch.fp import chang_cooper as pcc
+from compton2d_tpu_torch.fp.update import fp_step as p_fp_step
+
+torch.set_num_threads(2)
+
+RTOL = 1e-4
+
+
+def _np(x):
+    return x.numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def _cc_inputs(seed=0, Z=4, N=50):
+    rng = np.random.default_rng(seed)
+    gnt = (0.2 * 1.1 ** (np.arange(N) - 1.0)).astype(np.float32)
+    g = gnt + 1.0
+    dgdt = (-rng.uniform(1e-6, 1e-4, (Z, 1)) * (g * g - 1.0)
+            + rng.uniform(1e-7, 1e-5, (Z, 1)) * g).astype(np.float32)
+    disp = (rng.uniform(1e-7, 1e-5, (Z, 1)) * g * g / 2.0).astype(np.float32)
+    d_t = rng.uniform(10.0, 1e3, Z).astype(np.float32)
+    return gnt, dgdt, disp, d_t
+
+
+def test_chang_cooper_coeffs_match():
+    gnt, dgdt, disp, d_t = _cc_inputs()
+    tj = 3.0e4
+    a_p = pcc.chang_cooper_coeffs(*map(torch.as_tensor, (gnt, dgdt, disp,
+                                                          d_t)), tj)
+    a_j = jcc.chang_cooper_coeffs(*map(jnp.asarray, (gnt, dgdt, disp, d_t)),
+                                  tj)
+    for x, y in zip(a_p, a_j):
+        np.testing.assert_allclose(_np(x), _np(y), rtol=1e-5,
+                                   atol=1e-7 * np.abs(_np(y)).max())
+
+
+def test_pcr_and_thomas_match_reference():
+    gnt, dgdt, disp, d_t = _cc_inputs(1)
+    a, b, c = jcc.chang_cooper_coeffs(
+        *map(jnp.asarray, (gnt, dgdt, disp, d_t)), 3.0e4)
+    d = np.random.default_rng(2).uniform(0.0, 1.0, a.shape).astype(
+        np.float32)
+    abcd_t = [torch.as_tensor(np.array(x)) for x in (a, b, c, d)]
+    ref = np.asarray(jcc.pcr_solve(a, b, c, jnp.asarray(d)))
+    got = _np(pcc.pcr_solve(*abcd_t))
+    np.testing.assert_allclose(got, ref, rtol=RTOL, atol=1e-7)
+    # the Thomas oracle agrees with the reference's and with PCR
+    th_ref = np.asarray(jcc.thomas_solve(a, b, c, jnp.asarray(d)))
+    th = _np(pcc.thomas_solve(*abcd_t))
+    np.testing.assert_allclose(th, th_ref, rtol=RTOL, atol=1e-7)
+    np.testing.assert_allclose(got, th, rtol=RTOL, atol=1e-7)
+
+
+@pytest.fixture(scope="module")
+def carried():
+    """A reference Simulation's initial state carried over to the port,
+    plus a radiation field from one port step and the reference's
+    synchrotron loss on that state."""
+    kw = dict(nz=3, nr=2, nst=2000, n_slots=4096, num_nt=50, n_vol=48,
+              nphfield=48, t_const=False, seed=3)
+    jsim = jex.small_corona(**kw)
+    psim = pex.small_corona(**kw)
+    psim.step()
+    n_field = psim.last_outputs.tallies.n_field.numpy()
+    js, jt, jg = jsim.state, jsim.tables, jsim.grid
+    state, tables, grid, _ = convert.from_reference(
+        convert.flatten(js), convert.flatten(jt), convert.flatten(jg),
+        convert.flatten(jsim.src_static))
+    l_min = jnp.minimum(jg.dz, jg.dr) * jnp.ones_like(jg.vol)
+    z = js.zones
+    ve = j_volume_em(jt.e_ph, jt.gnt, z.f_nt, z.tea, z.n_e, z.B_field,
+                     z.amxwl, jg.vol, jg.zone_surf, l_min, js.dt, jt.sync,
+                     jsim.scales, f_pair=z.f_pair)
+    return jsim, psim, state, tables, grid, n_field, np.array(ve.eloss_sy)
+
+
+def test_convert_carries_state_exactly(carried):
+    jsim, _, state, tables, grid, _, _ = carried
+    for name, val in convert.flatten(jsim.state).items():
+        if name == "key":
+            continue
+        obj = state
+        for part in name.split("."):
+            obj = getattr(obj, part)
+        np.testing.assert_array_equal(_np(obj), val, err_msg=name)
+    np.testing.assert_array_equal(_np(tables.sync.val),
+                                  np.asarray(jsim.tables.sync.val))
+    np.testing.assert_array_equal(_np(grid.vol), np.asarray(jsim.grid.vol))
+
+
+def test_fp_step_matches_reference(carried):
+    """Substep count and incompleteness exact; zone fields rtol 1e-4;
+    p_nth to one step of the refit's 0.05 candidate grid (an argmin over
+    near-equal misfits may pick a neighbour)."""
+    jsim, psim, state, tables, grid, n_field, eloss_sy = carried
+    phys, scales = jsim.cfg.physics, jsim.scales
+    js, jt, jg = jsim.state, jsim.tables, jsim.grid
+    rj = j_fp_step(js.zones, jnp.asarray(n_field), jt, jg.vol,
+                   float(jsim.cfg.grid.z_max), jg.dz, js.dt, js.time,
+                   jnp.asarray(eloss_sy), phys, scales)
+    rp = p_fp_step(state.zones, torch.as_tensor(n_field), tables, grid.vol,
+                   float(psim.cfg.grid.z_max), grid.dz, state.dt,
+                   state.time, torch.as_tensor(eloss_sy),
+                   psim.cfg.physics, psim.scales)
+    assert int(rp.substeps) == int(rj.substeps)
+    assert int(rp.incomplete) == int(rj.incomplete)
+    assert int(rj.substeps) > 1                  # the substep loop ran
+    assert float(rj.dT_max) > 1e-3               # the zones evolved
+    for name in ("dt_new", "dT_max", "e_el_old", "e_el_new"):
+        np.testing.assert_allclose(_np(getattr(rp, name)),
+                                   _np(getattr(rj, name)), rtol=RTOL,
+                                   err_msg=name)
+    for name in ("tea", "n_e", "f_nt", "cdf_nt", "gmin", "gmax", "amxwl"):
+        ref = _np(getattr(rj.zones, name))
+        np.testing.assert_allclose(
+            _np(getattr(rp.zones, name)), ref, rtol=RTOL,
+            atol=RTOL * 1e-3 * np.abs(ref).max(), err_msg=name)
+    np.testing.assert_allclose(_np(rp.zones.p_nth), _np(rj.zones.p_nth),
+                               atol=0.051)

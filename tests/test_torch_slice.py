@@ -1,0 +1,136 @@
+"""The port's main path as a whole: the energy audit per step, statistical
+agreement with the JAX reference running its Pallas kernel in interpret
+mode, repeatability, the options outside the slice, and that the port
+loads neither jax nor the JAX package."""
+import dataclasses
+import os
+import subprocess
+import sys
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from compton2d_tpu import examples as jex
+from compton2d_tpu_torch import config as pcfg
+from compton2d_tpu_torch import examples as pex
+from compton2d_tpu_torch.driver import Simulation
+
+torch.set_num_threads(2)
+
+CFG = dict(nz=3, nr=2, nst=3000, n_slots=4096, num_nt=50, n_vol=64,
+           nphfield=64, t_const=False)
+SEEDS = (0, 1, 2)
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def test_audit_balances_every_step():
+    """Three steps with the FP solve on: |balance - 1| < 2e-3 (the JAX
+    tests' bound) at every step."""
+    sim = pex.small_corona(**CFG, seed=4)
+    for _ in range(3):
+        sim.step()
+        a = sim.energy_audit()
+        assert abs(a["balance"] - 1.0) < 2e-3, a
+        assert a["escaped"] > 0.0
+    assert np.all(np.isfinite(sim.state.zones.tea.numpy()))
+
+
+def _observables(audit, tea):
+    return np.array([audit["escaped"], audit["census"], float(np.mean(tea))])
+
+
+def test_matches_reference_statistically():
+    """After 2 steps, escaped and census energy and mean Te agree with the
+    reference's Pallas path (interpret mode) within z < 4, over 3 seeds a
+    side. The standard error has a 0.1% floor for float32 rounding, which
+    matters only for Te where the seed spread is tiny."""
+    jsim = jex.small_corona(**CFG, seed=0)
+    jsim = jsim.with_config(dataclasses.replace(
+        jsim.cfg, run=dataclasses.replace(jsim.cfg.run,
+                                          pallas_tracking="on")))
+    init = jsim.state
+    ref, port = [], []
+    for s in SEEDS:
+        # one compiled step serves every seed: only the key differs
+        jsim.state = init._replace(key=jax.random.PRNGKey(s))
+        jsim.run(2)
+        ref.append(_observables(jsim.energy_audit(),
+                                np.asarray(jsim.state.zones.tea)))
+        psim = pex.small_corona(**CFG, seed=s)
+        psim.run(2)
+        port.append(_observables(psim.energy_audit(),
+                                 psim.state.zones.tea.numpy()))
+    ref, port = np.array(ref), np.array(port)
+    k = len(SEEDS)
+    se = np.sqrt(ref.var(0, ddof=1) / k + port.var(0, ddof=1) / k)
+    se = np.maximum(se, 1e-3 * np.abs(ref.mean(0)))
+    z = np.abs(port.mean(0) - ref.mean(0)) / se
+    assert np.all(z < 4.0), (z, port.mean(0), ref.mean(0))
+
+
+def test_same_seed_bitwise_repeatable():
+    s1 = pex.small_corona(**CFG, seed=7)
+    s2 = pex.small_corona(**CFG, seed=7)
+    for _ in range(2):
+        o1, o2 = s1.step(), s2.step()
+    for name in o1.tallies._fields:
+        assert torch.equal(getattr(o1.tallies, name),
+                           getattr(o2.tallies, name)), name
+    assert torch.equal(s1.state.photons.w, s2.state.photons.w)
+
+
+def test_port_imports_neither_jax_nor_the_jax_package():
+    """A fresh interpreter runs one step of the port; neither jax nor any
+    compton2d_tpu module is loaded. The reference's config / constants /
+    units modules stay jax-free as well."""
+    code = (
+        "import sys\n"
+        "from compton2d_tpu_torch.examples import small_corona\n"
+        "small_corona(nz=2, nr=2, nst=300, n_slots=1024, num_nt=30, "
+        "n_vol=32, nphfield=32).step()\n"
+        "assert 'jax' not in sys.modules\n"
+        "assert not [m for m in sys.modules if m.split('.')[0] == "
+        "'compton2d_tpu']\n"
+        "import compton2d_tpu.config, compton2d_tpu.constants\n"
+        "import compton2d_tpu.units\n"
+        "assert 'jax' not in sys.modules\n"
+        "print('ok')\n"
+    )
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="2")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
+
+
+def _window(nz, nr, tbb=0.5):
+    return pcfg.TimeWindow(t0=0.0, t1=1e30, tbb_lower=(tbb,) * nr,
+                           tbb_upper=(0.0,) * nr, tbb_inner=(0.0,) * nz,
+                           tbb_outer=(0.0,) * nz)
+
+
+@pytest.mark.parametrize("change", [
+    dict(physics=dict(pair_switch=1)),
+    dict(physics=dict(cr_sent=1)),
+    dict(source=dict(strat_split=True)),
+    dict(mesh=True),
+    dict(tbb=-1.0),
+    dict(physics=dict(fp_include_coulomb=True)),
+    dict(run=dict(adaptive_dt=True)),
+    dict(physics=dict(flare=pcfg.FlareConfig(enabled=True))),
+    dict(grid=dict(nz=40, nr=30)),
+])
+def test_options_outside_the_slice_raise(change):
+    grid = pcfg.GridConfig(**{"nz": 3, "nr": 2, **change.get("grid", {})})
+    cfg = pcfg.SimConfig(
+        grid=grid,
+        physics=pcfg.PhysicsConfig(**change.get("physics", {})),
+        source=pcfg.SourceConfig(**change.get("source", {})),
+        run=pcfg.RunConfig(n_slots=1024, **change.get("run", {})),
+        windows=(_window(grid.nz, grid.nr, change.get("tbb", 0.5)),),
+    )
+    with pytest.raises(NotImplementedError):
+        Simulation(cfg, device="cpu",
+                   mesh=object() if change.get("mesh") else None)

@@ -58,7 +58,7 @@ def _build(cls, d: Dict[str, np.ndarray], prefix: str, device,
 def from_reference(
     state: Dict[str, np.ndarray], tables: Dict[str, np.ndarray],
     grid: Dict[str, np.ndarray], src: Dict[str, np.ndarray],
-    device="cpu", seed: int = 0,
+    device="cuda", seed: int = 0,
 ) -> Tuple[SimState, Tables, Grid, SourceStatic]:
     """The port's (SimState, Tables, Grid, SourceStatic) from flattened
     reference objects. The reference's threefry key has no counterpart:

@@ -1,11 +1,17 @@
 // Photon flight kernel for Hopper (sm_90a): whole-step tracking with the
-// Compton scatter sampler inlined.
+// Compton scatter sampler inlined, or with collisions handed back.
 //
 // Replaces compton2d_tpu/transport/flight_pallas2.py::_flight_kernel_v2 in
-// its resident-table, inline-scatter, pair_switch=False mode (the Pallas
-// call at flight_pallas2.py:1124). Each thread owns one photon slot and
-// runs the kernel's per-lane state machine FLY -> SCT_A -> SCT_B -> FLY
-// until census, leak, weight kill or max_iters:
+// its resident-table, pair_switch=False modes (the Pallas call at
+// flight_pallas2.py:1124), selected at run time by `inline_scatter`:
+//   1  (inline scatter) each thread owns one photon slot and runs the
+//      per-lane state machine FLY -> SCT_A -> SCT_B -> FLY until census,
+//      leak, weight kill or max_iters;
+//   0  (stratified splitting) a collision freezes the lane with
+//      FLAG_SCATTER after the move, as a leak does, so that the caller's
+//      stratified sampler places the tail copies (flight_pallas2.py:
+//      618-625); SCT_A / SCT_B and the event logs never run.
+// The states:
 //   FLY   optical-depth draw, log-linear sigma/kappa lookup, distance to the
 //         next r-shell / z-plane, event select, continuous absorption with
 //         per-zone edep/prdep tallies, weight-floor kill, move, zone hop or
@@ -58,6 +64,7 @@ constexpr int THREADS = WARPS * 32;
 constexpr unsigned FULL = 0xffffffffu;
 
 constexpr int FLAG_NONE = 0;
+constexpr int FLAG_SCATTER = 1;
 constexpr int FLAG_LEAK = 2;
 constexpr int MODE_FLY = 0;
 constexpr int MODE_SCT_A = 1;
@@ -103,7 +110,7 @@ struct Pointers {
 constexpr int N_POINTERS = 43;
 
 struct Scalars {
-  int n, nz, nr, n_vol, num_nt, max_iters, max_tries;
+  int n, nz, nr, n_vol, num_nt, max_iters, max_tries, inline_scatter;
   float e_ph_log0, e_ph_dlog, x_ph_hi, weight_floor;
 };
 
@@ -172,9 +179,12 @@ flight_kernel(Pointers p, Scalars s) {
   int sct_cnt = 0;
   float u_e = 0.0f, gma = 1.0f, omg = 0.0f, znue = 1e-3f;
   float ekill = 0.0f, esct = 0.0f, epair = 0.0f;
-  for (int k = 0; k < K_LOG; ++k) {
-    p.iglog[(size_t)slot * K_LOG + k] = -1;
-    p.delog[(size_t)slot * K_LOG + k] = 0.0f;
+  // the strat mode logs nothing: its log buffers have no rows
+  if (s.inline_scatter) {
+    for (int k = 0; k < K_LOG; ++k) {
+      p.iglog[(size_t)slot * K_LOG + k] = -1;
+      p.delog[(size_t)slot * K_LOG + k] = 0.0f;
+    }
   }
 
   float* my_tally = wtally + warp * 2 * nzr;
@@ -309,9 +319,13 @@ flight_kernel(Pointers p, Scalars s) {
             kn = g_knew;
           }
         } else if (ikind == 3) {
-          mode = MODE_SCT_A;
-          scan_idx = -1;
-          tries = 0;
+          if (s.inline_scatter) {
+            mode = MODE_SCT_A;
+            scan_idx = -1;
+            tries = 0;
+          } else {
+            flag = FLAG_SCATTER;
+          }
         }
       }
     } else if (in_a) {
@@ -501,11 +515,11 @@ int flight_threads_per_block() { return THREADS; }
 // Launches the kernel on `stream` and returns cudaGetLastError().
 // `ptrs` holds the N_POINTERS device pointers in the order of Pointers.
 // n must be a multiple of TILE; nz * nr <= 1024 keeps the per-warp
-// tallies inside 48 KB of shared memory.
+// tallies inside 48 KB of shared memory. inline_scatter is 1 or 0.
 int flight_launch(const uint64_t* ptrs, int n_ptrs, int n, int nz, int nr,
                   int n_vol, int num_nt, int max_iters, int max_tries,
-                  float e_ph_log0, float e_ph_dlog, float x_ph_hi,
-                  float weight_floor, void* stream) {
+                  int inline_scatter, float e_ph_log0, float e_ph_dlog,
+                  float x_ph_hi, float weight_floor, void* stream) {
   if (n_ptrs != N_POINTERS || n % TILE != 0 || nz * nr > 1024)
     return (int)cudaErrorInvalidValue;
   Pointers p;
@@ -515,7 +529,8 @@ int flight_launch(const uint64_t* ptrs, int n_ptrs, int n, int nz, int nr,
   for (int i = 0; i < N_POINTERS; ++i)
     dst[i] = reinterpret_cast<const void*>(ptrs[i]);
   Scalars s{n, nz, nr, n_vol, num_nt, max_iters, max_tries,
-            e_ph_log0, e_ph_dlog, x_ph_hi, weight_floor};
+            inline_scatter ? 1 : 0, e_ph_log0, e_ph_dlog, x_ph_hi,
+            weight_floor};
   const int nzr = nz * nr;
   const size_t smem = sizeof(float) * ((size_t)WARPS * 2 * nzr + 2 * THREADS);
   flight_kernel<<<n / THREADS, THREADS, smem,

@@ -7,14 +7,22 @@ emission, tracking through the flight kernel, census tallies, the
 Fokker-Planck electron update and the time advance. dt is constant, as in
 the reference's active code.
 
-The port covers one slice of the reference's options. ``Simulation``
-raises ``NotImplementedError`` naming the option for anything outside it:
-pair physics, boundary reflection (cr_sent != 0), stratified splitting,
-device meshes, file-spectrum boundaries, the Coulomb FP drift, adaptive
-dt, coronal flares and grids above 1024 zones.
+The port covers a part of the reference's options: thermal boundaries,
+synchrotron volume emission and shock injection, census roulette, and
+stratified tail splitting. ``Simulation`` raises ``NotImplementedError``
+naming the option for anything outside it: pair physics, boundary
+reflection (cr_sent != 0), device meshes, file-spectrum boundaries, the
+Coulomb FP drift, adaptive dt, coronal flares, grids above 1024 zones and
+checkpoints.
+
+Run-level outputs (``attach_outputs``): the escaping spectrum, light
+curves and temperature profile accumulate on the host from each step's
+tallies, and each step's event records go to a reference-format event
+file; ``run_to_stop`` advances to ``t_stop`` and writes them.
 """
 from __future__ import annotations
 
+import os
 import warnings
 from typing import NamedTuple, Optional, Tuple
 
@@ -26,7 +34,11 @@ from compton2d_tpu_torch.config import SimConfig, TimeWindow, ZoneInit
 from compton2d_tpu_torch.units import Scales, make_scales
 from compton2d_tpu_torch.fp.update import fp_step
 from compton2d_tpu_torch.grid import Grid, initial_dt, make_grid
-from compton2d_tpu_torch.physics.compton import zone_sigma_table
+from compton2d_tpu_torch.io.checkpoint import WalltimeGuard
+from compton2d_tpu_torch.io.events import EventFileWriter
+from compton2d_tpu_torch.io.outputs import OutputAccumulator
+from compton2d_tpu_torch.physics.compton import SIGMA_T, zone_sigma_table
+from compton2d_tpu_torch.physics.electron_dist import gnt_grid
 from compton2d_tpu_torch.physics.emissivity import equipartition_b, volume_em
 from compton2d_tpu_torch.state import (
     EventBuffer,
@@ -150,7 +162,6 @@ def check_slice(cfg: SimConfig, mesh=None) -> None:
     unsupported = [
         (phys.pair_switch, "pair_switch"),
         (phys.cr_sent != 0, "cr_sent != 0 (boundary reflection)"),
-        (cfg.source.strat_split, "strat_split"),
         (mesh is not None, "mesh (multi-device)"),
         (any(t < 0.0 for w in cfg.windows for t in (
             *w.tbb_lower, *w.tbb_upper, *w.tbb_inner, *w.tbb_outer)),
@@ -199,7 +210,7 @@ class Simulation:
             self._clock_dirty = False
 
     def __init__(self, cfg: SimConfig, zone_init: Optional[ZoneInit] = None,
-                 *, device, mesh=None):
+                 *, device="cuda", mesh=None):
         check_slice(cfg, mesh)
         self.cfg = cfg
         self.device = torch.device(device)
@@ -238,6 +249,24 @@ class Simulation:
         self.window_sources = build_window_sources(cfg, self.scales, dev)
         self.src_static = self.window_sources.select(0.0, dt0, 0)
         self.last_outputs: Optional[StepOutputs] = None
+        self.outputs: Optional[OutputAccumulator] = None
+
+    def with_config(self, cfg: SimConfig) -> "Simulation":
+        """A fresh Simulation with a modified config and THIS sim's zone
+        initialization and device."""
+        return Simulation(cfg, self.zone_init, device=self.device)
+
+    def attach_outputs(self, out_dir: str, event_file: str = "evb.dat"):
+        """Enable run-level output accumulation and event-file spooling
+        (the reference's graphics and pNNN_evb.dat outputs)."""
+        self.out_dir = out_dir
+        self.outputs = OutputAccumulator(
+            self.tables.hu.cpu().numpy(), self.tables.mu_edges.cpu().numpy(),
+            self.cfg.grid.lc_bands, self.scales.E,
+        )
+        self.event_writer = EventFileWriter(
+            os.path.join(out_dir, event_file), self.scales.E)
+        return self
 
     def step(self) -> StepOutputs:
         self._sync_clock()
@@ -251,12 +280,63 @@ class Simulation:
         self._host_dt_prev = self._host_dt
         self._host_ncycle += 1
         self.last_outputs = out
+        if self.outputs is not None:
+            self._check_event_overflow(out)
+            t = out.tallies
+            self.outputs.add_step(
+                t._replace(fout=t.fout.cpu(), edout=t.edout.cpu()),
+                self._host_time - self._host_dt_prev, self._host_dt_prev,
+                tea=self.state.zones.tea.cpu().numpy(),
+            )
+            self.event_writer.write(out.events)
         return out
 
     def run(self, n_steps: int):
         for _ in range(n_steps):
             self.step()
         return self.last_outputs
+
+    def run_to_stop(self, walltime_budget_s: float = 0.0,
+                    checkpoint_path: Optional[str] = None,
+                    max_steps: int = 1_000_000,
+                    verbose: bool = False) -> bool:
+        """Advance until time - dt_prev >= t_stop (xec2d.f:110) and write
+        the attached outputs. Returns False, without writing them, when
+        the walltime guard (xec2d.f:50-55) stops the run first."""
+        if checkpoint_path:
+            raise NotImplementedError(
+                "compton2d_tpu_torch: checkpoints are not ported yet")
+        guard = WalltimeGuard(
+            walltime_budget_s or self.cfg.run.walltime_budget_s,
+            self.cfg.run.checkpoint_frac,
+        )
+        for _ in range(max_steps):
+            self._sync_clock()
+            if self._host_time - self._host_dt_prev >= self.cfg.run.t_stop:
+                break
+            if guard.should_checkpoint():
+                return False
+            self.step()
+            if verbose:
+                print(self.summary())
+        if self.outputs is not None:
+            self.finalize_outputs()
+        return True
+
+    def finalize_outputs(self):
+        """Write spectrum.dat, photons.dat, the light curves lc_muNN.dat and
+        temp_profile.dat into the output directory."""
+        elapsed = float(self.state.time) + float(self.state.dt)
+        self.outputs.write_spectrum(
+            os.path.join(self.out_dir, "spectrum.dat"), elapsed)
+        self.outputs.write_spectrum(
+            os.path.join(self.out_dir, "photons.dat"), elapsed, photons=True)
+        self.outputs.write_light_curves(os.path.join(self.out_dir, "lc"))
+        self.outputs.write_temperature_profile(
+            os.path.join(self.out_dir, "temp_profile.dat"),
+            self.grid.r_edges.cpu().numpy() * self.scales.L,
+            n_e=self.state.zones.n_e.cpu().numpy(),
+        )
 
     # ---------------- diagnostics -------------------------------------
     def _check_event_overflow(self, out) -> int:
@@ -425,12 +505,31 @@ def _step_impl(state: SimState, src: sourcing.SourceStatic, grid: Grid,
         time=state.time,
         dt=state.dt,
         inv_c=float(np.float32(scales.inv_c)),
+        # 1/(n_eff sigma_T L F_tot): the stratified-scatter normalizer
+        # (Z = <sigma_KN ratio> = sig_s * inv_nsigt, the quadrature of
+        # zone_sigma_table)
+        inv_nsigt=1.0 / torch.clamp_min(
+            zones.n_e.reshape(-1).to(f32)
+            * float(np.float32(SIGMA_T * scales.L))
+            * torch.sum(zones.f_nt[..., :-1] * torch.diff(tables.gnt),
+                        dim=-1).reshape(-1).to(f32),
+            1e-38,
+        ),
     )
+    strat_icut = 0
+    if cfg.source.strat_split:
+        # the gnt index of the tail boundary gamma_c (gnt holds gamma - 1)
+        strat_icut = int(np.searchsorted(gnt_grid(g.num_nt),
+                                         cfg.source.strat_gamma_c - 1.0))
+        strat_icut = min(max(strat_icut, 1), g.num_nt - 1)
     st = TrackStatics(
         nz=nz, nr=nr, rmin_positive=g.r_min > 1e-10,
         max_iters=run.max_flight_iters,
         max_scatter_tries=run.max_scatter_tries,
         weight_floor=cfg.source.weight_floor, spec_switch=phys.spec_switch,
+        strat_split=cfg.source.strat_split, strat_icut=strat_icut,
+        strat_p_max=cfg.source.strat_p_max,
+        strat_copies=cfg.source.strat_copies,
     )
     tallies = Tallies.zeros(nz, nr, g.num_nt, g.nphfield, g.n_gg, g.nmu,
                             g.nphtotal, g.nph_lc, device=dev)

@@ -12,11 +12,17 @@ import torch
 
 
 def _w_over_expm1(w):
-    """w / (e^w - 1), stable for |w| -> 0 and large |w|."""
+    """w / (e^w - 1), stable for |w| -> 0 and large |w|. Below w = -500,
+    where e^w underflows, it is its limit -w, so that w / (1 - e^-w) =
+    w + w / (e^w - 1) goes to 0 there and not to w + 500 < 0. (The
+    reference clips w to -500 in both, which makes the off-diagonal
+    coefficient c positive and b negative under a strong heating drift;
+    the tridiagonal solve then divides by a zero pivot.)"""
     wc = torch.clamp(w, -500.0, 500.0)
     small = torch.abs(wc) < 1e-8
     safe = torch.where(small, 1.0, wc)
-    return torch.where(small, 1.0 - 0.5 * wc, safe / torch.expm1(safe))
+    out = torch.where(small, 1.0 - 0.5 * wc, safe / torch.expm1(safe))
+    return torch.where(w < -500.0, -w, out)
 
 
 def _w_over_one_minus_exp_neg(w):

@@ -1,0 +1,134 @@
+"""Per-phase time of the port's step on a CUDA card.
+
+Runs a configuration twice from the same seed: first plain, for the step
+time, then with every phase of the step wrapped in a timer that
+synchronises the card before and after it, for the breakdown (inclusive
+times: ``transport_step`` contains the flight kernel, ``_leak`` and
+``apply_scatter``; ``apply_scatter`` contains its ``scatter_stratified``
+sampler calls). Prints one JSON object::
+
+  python -m compton2d_tpu_torch.profile_phases --config mrk421
+  python -m compton2d_tpu_torch.profile_phases --config small_corona
+
+``mrk421`` is the dense Mrk 421 run (10x4 zones, 131072 slots, nst
+200000, n_e 2e6, stratified splitting with gamma_c 3e4 and 64 copies)
+to t_stop; ``small_corona`` is the benchmark-size corona (8x4 zones,
+131072 slots, nst 60000) for 2 warm-up and ``--steps`` timed steps.
+"""
+from __future__ import annotations
+
+import argparse
+import collections
+import json
+import subprocess
+import time
+
+import torch
+
+from compton2d_tpu_torch import driver, run_mrk421
+from compton2d_tpu_torch.examples import small_corona
+from compton2d_tpu_torch.transport import flight, tracking
+
+# (module, attribute) of each timed phase, as the step looks them up
+PHASES = (
+    (driver, "equipartition_b"), (driver, "volume_em"),
+    (driver.sourcing, "compute_budget"), (driver, "census_roulette"),
+    (driver.sourcing, "emit"), (driver, "zone_sigma_table"),
+    (driver, "transport_step"), (flight, "flight_step"),
+    (tracking, "_leak"), (tracking, "apply_scatter"),
+    (tracking, "scatter_stratified"), (tracking, "segment_sum"),
+    (driver, "census_tally"), (driver, "fp_step"),
+)
+
+
+def make_sim(config: str, device):
+    if config == "mrk421":
+        args = run_mrk421.parser().parse_args(
+            ["--nst", "200000", "--n-slots", "131072", "--n-e", "2e6",
+             "--strat-gamma-c", "3e4", "--strat-copies", "64",
+             "--device", str(device)])
+        return run_mrk421.make_sim(args)
+    return small_corona(nz=8, nr=4, nst=60000, n_slots=1 << 17, num_nt=200,
+                        n_vol=400, nphfield=400, t_const=False,
+                        max_flight_iters=256, device=device)
+
+
+def drive(sim, config: str, steps: int, warm: int, on_timed=None):
+    """Step the sim; returns (seconds, outputs) of the timed steps, and
+    calls ``on_timed`` between the warm-up and the timed steps."""
+    if config == "mrk421":
+        warm, steps = 0, 1_000_000    # to t_stop
+    for _ in range(warm):
+        sim.step()
+    if on_timed is not None:
+        on_timed()
+    outs = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        sim._sync_clock()
+        if (config == "mrk421" and sim._host_time - sim._host_dt_prev
+                >= sim.cfg.run.t_stop):
+            break
+        outs.append(sim.step())
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, outs
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--config", choices=("mrk421", "small_corona"),
+                    default="mrk421")
+    ap.add_argument("--steps", type=int, default=4)
+    ap.add_argument("--warm", type=int, default=2)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_phases: needs a CUDA card")
+    device = torch.device("cuda", 0)
+    flight.build()
+
+    wall, outs = drive(make_sim(args.config, device), args.config,
+                       args.steps, args.warm)
+    n = len(outs)
+
+    acc = collections.defaultdict(lambda: [0.0, 0])
+    originals = []
+
+    def timed(name, fn):
+        def wrapper(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            acc[name][0] += time.perf_counter() - t0
+            acc[name][1] += 1
+            return out
+        return wrapper
+
+    for mod, name in PHASES:
+        originals.append((mod, name, getattr(mod, name)))
+        setattr(mod, name, timed(name, getattr(mod, name)))
+    try:
+        wall_w, outs_w = drive(make_sim(args.config, device), args.config,
+                               args.steps, args.warm, on_timed=acc.clear)
+    finally:
+        for mod, name, fn in originals:
+            setattr(mod, name, fn)
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    print(json.dumps({
+        "config": args.config, "card": card, "steps": n,
+        "ms_per_step": 1e3 * wall / n,
+        "histories_per_s": sum(int(o.n_tracked) for o in outs) / wall,
+        "rounds_per_step": sum(int(o.tallies.trk_rounds) for o in outs) / n,
+        "ms_per_step_wrapped": 1e3 * wall_w / len(outs_w),
+        "phases_ms_per_step": {k: 1e3 * v[0] / len(outs_w)
+                               for k, v in acc.items()},
+        "calls_per_step": {k: v[1] / len(outs_w) for k, v in acc.items()},
+    }))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,7 +1,10 @@
 """Whole-step photon flight with the Compton scatter sampler inlined.
 
 The counterpart of ``compton2d_tpu.transport.flight_pallas2`` in its
-resident-table, inline-scatter, ``pair_switch=False`` mode. Three pieces:
+resident-table, ``pair_switch=False`` modes: with the scatter sampler
+inlined (``inline_scatter=True``), or with collisions frozen as
+FLAG_SCATTER for the stratified sampler outside (``inline_scatter=False``,
+the mode of ``SourceConfig.strat_split``). Three pieces:
 
 - :func:`build_flight_tables` — the per-step zone tables in their natural
   layout (the counterpart of ``build_kernel_tables``): sigma/kappa rows,
@@ -27,7 +30,7 @@ import subprocess
 import tempfile
 import time
 from pathlib import Path
-from typing import NamedTuple, Optional
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -39,6 +42,7 @@ GUIDE_G = 512      # electron-CDF guide cells
 MAX_ZONES = 1024   # per-warp tallies must fit 48 KB of shared memory
 
 FLAG_NONE = 0
+FLAG_SCATTER = 1
 FLAG_LEAK = 2
 MODE_FLY = 0
 MODE_SCT_A = 1
@@ -49,9 +53,11 @@ _CLAMP_S = 0.9999999
 _INV_LN2 = 1.4426950408889634
 _M32 = 0xFFFFFFFF
 
-# kernel launches made by flight_step on CUDA tensors (the plain version
-# on CPU tensors does not count)
+# kernel launches made by flight_step on CUDA tensors, in the inline
+# scatter mode and in the strat (FLAG_SCATTER) mode; the plain version on
+# CPU tensors does not count
 LAUNCHES = 0
+STRAT_LAUNCHES = 0
 
 _SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "flight.cu"
 _BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
@@ -98,8 +104,10 @@ class FlightResult(NamedTuple):
     epair: torch.Tensor      # ()
     sct_cnt: torch.Tensor    # (n,) int32
     tally: torch.Tensor      # (2, nzr) [edep, prdep]
-    iglog: torch.Tensor      # (n, K_LOG) int32, -1 = empty
-    delog: torch.Tensor      # (n, K_LOG) f32
+    # scatter-event logs: (n, K_LOG) with the scatter inlined; (0, K_LOG)
+    # in the strat mode, which logs nothing
+    iglog: torch.Tensor      # int32, -1 = empty
+    delog: torch.Tensor      # f32
 
 
 def guide_u_edges() -> np.ndarray:
@@ -186,6 +194,7 @@ def flight_step_reference(
     e, w, w0, r, z, mu, cphi, sphi, dcen, jz, kr, alive,
     tables: FlightTables, seeds, *, nz: int, nr: int,
     weight_floor: float, max_iters: int, max_tries: int,
+    inline_scatter: bool = True,
 ) -> FlightResult:
     """The kernel's lock-step loop over all lanes, in PyTorch."""
     n = e.shape[0]
@@ -216,8 +225,9 @@ def flight_step_reference(
     znue = torch.full((n,), 1e-3, dtype=f32, device=dev)
     ekill, esct, epair = zf.clone(), zf.clone(), zf.clone()
     tally = torch.zeros((2, nzr), dtype=f32, device=dev)
-    iglog = torch.full((n, K_LOG), -1, dtype=i32, device=dev)
-    delog = torch.zeros((n, K_LOG), dtype=f32, device=dev)
+    n_log = n if inline_scatter else 0
+    iglog = torch.full((n_log, K_LOG), -1, dtype=i32, device=dev)
+    delog = torch.zeros((n_log, K_LOG), dtype=f32, device=dev)
     where = torch.where
 
     it = 0
@@ -228,7 +238,6 @@ def flight_step_reference(
         in_b = live & (mode == MODE_SCT_B)
         if not bool(torch.any(fly | in_a | in_b)):
             break
-
         def rnd(draw):
             return u01(seed_u, lane_mix, it, draw)
 
@@ -342,6 +351,13 @@ def flight_step_reference(
         jn = where(leak, g_jnew, jn)
         kn = where(leak, g_knew, kn)
         collide = upd & (ikind == 3)
+        if not inline_scatter:
+            # strat mode: the lane freezes after the move, as a leak does
+            flag = where(collide, FLAG_SCATTER, flag)
+            tally[0].index_add_(0, zid, edep_add)
+            tally[1].index_add_(0, zid, prdep_add)
+            it += 1
+            continue
         mode = where(collide, MODE_SCT_A, mode)
         scan_idx = where(collide, -1, scan_idx)
         tries = where(collide, 0, tries)
@@ -446,7 +462,7 @@ def flight_step_reference(
         sphi = where(finish, sphi_s / nrm_s, sphi)
         mode = where(finish, MODE_FLY, mode)
         esct = esct + d_e
-        for k in range(K_LOG):
+        for k in range(K_LOG if inline_scatter else 0):
             hit = finish & (sct_cnt == k)
             iglog[:, k] = where(hit, igam, iglog[:, k])
             delog[:, k] = where(hit, d_e, delog[:, k])
@@ -514,7 +530,7 @@ def build() -> float:
         lib = ctypes.CDLL(str(path))
         lib.flight_launch.argtypes = (
             [ctypes.c_void_p, ctypes.c_int]
-            + [ctypes.c_int] * 7
+            + [ctypes.c_int] * 8
             + [ctypes.c_float] * 4
             + [ctypes.c_void_p]
         )
@@ -540,13 +556,15 @@ def flight_step(
     e, w, w0, r, z, mu, cphi, sphi, dcen, jz, kr, alive,
     tables: FlightTables, seeds, *, nz: int, nr: int,
     weight_floor: float, max_iters: int, max_tries: int,
+    inline_scatter: bool = True,
 ) -> FlightResult:
     """One kernel entry over all photon slots. CPU tensors run
     :func:`flight_step_reference`; CUDA tensors launch ``csrc/flight.cu``
     (built at first use) or raise."""
-    global LAUNCHES
+    global LAUNCHES, STRAT_LAUNCHES
     kw = dict(nz=nz, nr=nr, weight_floor=weight_floor,
-              max_iters=max_iters, max_tries=max_tries)
+              max_iters=max_iters, max_tries=max_tries,
+              inline_scatter=inline_scatter)
     if e.device.type == "cpu":
         return flight_step_reference(
             e, w, w0, r, z, mu, cphi, sphi, dcen, jz, kr, alive,
@@ -589,6 +607,8 @@ def flight_step(
     def emp(dtype, *shape):
         return torch.empty(shape, dtype=dtype, device=dev)
 
+    n_log = n if inline_scatter else 0
+
     outs = dict(
         e=emp(f32, n), w=emp(f32, n), r=emp(f32, n), z=emp(f32, n),
         mu=emp(f32, n), cphi=emp(f32, n), sphi=emp(f32, n),
@@ -597,7 +617,7 @@ def flight_step(
         jn=emp(i32, n), kn=emp(i32, n), it=emp(i32, n),
         ekill=emp(f32, n), esct=emp(f32, n), epair=emp(f32, n),
         cnt=emp(i32, n), tally=emp(f32, n // threads, 2, nzr),
-        iglog=emp(i32, n, K_LOG), delog=emp(f32, n, K_LOG),
+        iglog=emp(i32, n_log, K_LOG), delog=emp(f32, n_log, K_LOG),
     )
     ptrs = [t.data_ptr() for t in (
         e, w, w0, r, z, mu, cphi, sphi, dcen, jz, kr, alive_i, seeds,
@@ -608,13 +628,16 @@ def flight_step(
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = _lib.flight_launch(
         arr, len(ptrs), n, nz, nr, n_vol, num_nt, int(max_iters),
-        int(max_tries), tables.e_ph_log0, tables.e_ph_dlog,
-        float(np.float32(n_vol - 1.000001)),
+        int(max_tries), int(bool(inline_scatter)), tables.e_ph_log0,
+        tables.e_ph_dlog, float(np.float32(n_vol - 1.000001)),
         float(np.float32(weight_floor)), stream,
     )
     if rc != 0:
         raise RuntimeError(f"flight kernel launch failed: cudaError {rc}")
-    LAUNCHES += 1
+    if inline_scatter:
+        LAUNCHES += 1
+    else:
+        STRAT_LAUNCHES += 1
     o = outs
     return FlightResult(
         e=o["e"], w=o["w"], r=o["r"], z=o["z"], mu=o["mu"],

@@ -1,24 +1,35 @@
-"""Photon tracking: the kernel's outer round loop, boundary leaks and the
-census tallies (counterpart of ``compton2d_tpu.transport.tracking`` on the
-Pallas path with ``cr_sent=0``).
+"""Photon tracking: the kernel's outer round loop, boundary leaks,
+stratified scatters and the census tallies (counterpart of
+``compton2d_tpu.transport.tracking`` on the Pallas path with
+``cr_sent=0``).
 
 Each outer round launches the flight kernel (``transport.flight``) over
-all slots; a kernel entry ends only at census, leak or the iteration
-budget. Lanes frozen with FLAG_LEAK are handed to :func:`_leak`
-(escape tallies and event records), and the kernel's per-lane scatter
-logs are histogrammed into e_ic / n_esp. The reference's one-hot matmul
-tallies (``zone_accum`` / ``hist2d_accum``) become deterministic segment
-sums, and its compare-count binning becomes ``searchsorted``.
+all slots; a kernel entry ends only at census, leak, a collision in the
+strat mode, or the iteration budget. Lanes frozen with FLAG_LEAK are
+handed to :func:`_leak` (escape tallies and event records). With the
+scatter inlined, the kernel's per-lane scatter logs are histogrammed into
+e_ic / n_esp; under stratified splitting the lanes frozen with
+FLAG_SCATTER go through :func:`apply_scatter`, which also places the tail
+copies in free slots. The reference's one-hot matmul tallies
+(``zone_accum`` / ``hist2d_accum``) and row lookups (``_zone_rows``)
+become deterministic segment sums and gathers, and its compare-count
+binning becomes ``searchsorted``.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import NamedTuple, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 from compton2d_tpu_torch.state import EventBuffer, PhotonArray, Tallies
 from compton2d_tpu_torch.transport import flight
+from compton2d_tpu_torch.transport.scatter import (
+    ScatterDraws,
+    draw_scatter_uniforms,
+    scatter_stratified,
+)
 
 
 @dataclass(frozen=True)
@@ -33,6 +44,14 @@ class TrackStatics:
     weight_floor: float = 1.0e-10
     upper_escape_mu_cut: float = 0.98   # imcleak2d.f:303 event filter
     spec_switch: int = 0                # imcleak2d.f:53-58
+    # stratified tail splitting (SourceConfig.strat_split): collisions
+    # leave the kernel and apply_scatter splits the tail above gnt index
+    # strat_icut into strat_copies copies
+    strat_split: bool = False
+    strat_icut: int = 0
+    strat_p_min: float = 1.0e-6
+    strat_p_max: float = 0.5
+    strat_copies: int = 1
 
 
 class TrackContext(NamedTuple):
@@ -59,6 +78,30 @@ class TrackContext(NamedTuple):
     time: torch.Tensor        # () f32 [s]
     dt: torch.Tensor          # () f32 [s]
     inv_c: float              # seconds per scaled length
+    # (nz*nr,) 1/(n_eff sigma_T L F_tot), the stratified-scatter
+    # normalizer; needed only under strat_split
+    inv_nsigt: Optional[torch.Tensor] = None
+
+
+# draw(first_stream, n_streams, idx) -> uniforms of n_streams weighted
+# scatters for each slot in idx, stream-major: stream 0 is the parent's
+# draw, 1 + m the draw of tail copy m (the reference's k_scat and
+# fold_in(k_scat, 1 + m))
+ScatterDrawFn = Callable[[int, int, torch.Tensor], ScatterDraws]
+
+
+def generator_draws(seed: int, max_tries: int) -> ScatterDrawFn:
+    """The scatter draw layer of one round: the parent stream and the copy
+    streams come from two generators seeded from ``seed``, so the parents'
+    numbers do not depend on the number of copies."""
+
+    def draw(first_stream: int, n_streams: int, idx: torch.Tensor):
+        gen = torch.Generator(device=idx.device)
+        gen.manual_seed((seed + min(first_stream, 1)) % (1 << 63))
+        return draw_scatter_uniforms(gen, n_streams * idx.shape[0],
+                                     max_tries, idx.device)
+
+    return draw
 
 
 def segment_sum(vals: torch.Tensor, idx: torch.Tensor,
@@ -113,6 +156,23 @@ def mu_bin(mu_edges, mu):
     return torch.clamp(i, 0, mu_edges.shape[0] - 1).to(torch.int32)
 
 
+def loggrid_interp(table: torch.Tensor, zid: torch.Tensor, e: torch.Tensor,
+                   log0, dlog) -> torch.Tensor:
+    """Log-linear interpolation of per-zone tables ``table`` (nzones, n_e)
+    or (nzones, n_e, k) at photon energies ``e`` in zones ``zid``."""
+    n_e = table.shape[1]
+    x = (torch.log(torch.clamp_min(e, 1e-30)) - log0) / dlog
+    x = torch.clamp(x, 0.0, n_e - 1.000001)
+    i0 = torch.floor(x).long()
+    f = (x - i0).to(table.dtype)
+    z = zid.long()
+    v0 = table[z, i0]
+    v1 = table[z, i0 + 1]
+    if table.dim() == 3:
+        f = f[:, None]
+    return v0 * (1.0 - f) + v1 * f
+
+
 def draw_seeds(gen: torch.Generator, n_tiles: int, device) -> torch.Tensor:
     """Per-tile int32 kernel seeds (uniform over all 2^32 bit patterns)."""
     s = torch.randint(0, 1 << 32, (n_tiles,), generator=gen, device=device,
@@ -125,12 +185,13 @@ def transport_step(
     gen: torch.Generator, ctx: TrackContext, st: TrackStatics,
 ) -> Tuple[PhotonArray, Tallies, EventBuffer]:
     """Track every photon to census, escape or absorption: outer rounds
-    of the flight kernel with the leaks handled between rounds. The
-    rounds stop once the accumulated kernel iterations reach max_iters,
-    so flight iterations are bounded by 2*max_iters; stragglers go to
-    census as they are."""
+    of the flight kernel with the leaks (and, under stratified splitting,
+    the scatters) handled between rounds. The rounds stop once the
+    accumulated kernel iterations reach max_iters, so flight iterations
+    are bounded by 2*max_iters; stragglers go to census as they are."""
     n = photons.n_slots
     num_nt = ctx.cdf_nt.shape[1]
+    inline = not st.strat_split
     ftab = flight.build_flight_tables(
         ctx.opac_zone, ctx.cdf_nt, ctx.gnt, ctx.r_edges, ctx.z_edges,
         ctx.e_ph_log0, ctx.e_ph_dlog,
@@ -145,40 +206,162 @@ def transport_step(
             ph.dcen, ph.jz, ph.kr, ph.alive, ftab, seeds,
             nz=st.nz, nr=st.nr, weight_floor=float(st.weight_floor),
             max_iters=int(st.max_iters),
-            max_tries=int(st.max_scatter_tries),
+            max_tries=int(st.max_scatter_tries), inline_scatter=inline,
         )
         ph = ph._replace(
             e=res.e, w=res.w, r=res.r, z=res.z, mu=res.mu, cphi=res.cphi,
             sphi=res.sphi, dcen=res.dcen, jz=res.jz, kr=res.kr,
             alive=res.alive,
         )
-        # e_ic / n_esp from the per-lane event logs; events past K_LOG
-        # keep their energy in edep / e_scatter and are counted here
-        logged = res.iglog.reshape(-1) >= 0
-        ig = torch.where(logged, res.iglog.reshape(-1), 0)
-        de = torch.where(logged, res.delog.reshape(-1), 0.0)
         tl = tl._replace(
             edep=tl.edep + res.tally[0].reshape(st.nz, st.nr),
             prdep=tl.prdep + res.tally[1].reshape(st.nz, st.nr),
             e_killed=tl.e_killed + res.ekill,
             e_scatter=tl.e_scatter + res.esct,
             e_pair_abs=tl.e_pair_abs + res.epair,
-            n_sct_overflow=tl.n_sct_overflow + torch.sum(
-                torch.clamp_min(res.sct_cnt - flight.K_LOG, 0),
-                dtype=torch.int32,
-            ),
-            e_ic=tl.e_ic + segment_sum(de, ig, num_nt),
-            n_esp=tl.n_esp + segment_sum(logged.to(torch.float32), ig,
-                                         num_nt),
         )
+        if inline:
+            # e_ic / n_esp from the per-lane event logs; events past K_LOG
+            # keep their energy in edep / e_scatter and are counted here
+            logged = res.iglog.reshape(-1) >= 0
+            ig = torch.where(logged, res.iglog.reshape(-1), 0)
+            de = torch.where(logged, res.delog.reshape(-1), 0.0)
+            tl = tl._replace(
+                n_sct_overflow=tl.n_sct_overflow + torch.sum(
+                    torch.clamp_min(res.sct_cnt - flight.K_LOG, 0),
+                    dtype=torch.int32,
+                ),
+                e_ic=tl.e_ic + segment_sum(de, ig, num_nt),
+                n_esp=tl.n_esp + segment_sum(logged.to(torch.float32), ig,
+                                             num_nt),
+            )
+        else:
+            # the round's scatter stream (the reference's k_scat)
+            scat_seed = int(torch.randint(0, 1 << 62, (1,), generator=gen,
+                                          device=ph.e.device))
         leak_mask = (res.flag == flight.FLAG_LEAK) & ph.alive
         if bool(torch.any(leak_mask)):
             ph, tl, ev = _leak(ph, tl, ev, leak_mask, res.jn, res.kn, ctx, st)
+        if not inline:
+            sct = (res.flag == flight.FLAG_SCATTER) & ph.alive
+            if bool(torch.any(sct)):
+                zid = (torch.clamp(ph.jz, 0, st.nz - 1) * st.nr
+                       + torch.clamp(ph.kr, 0, st.nr - 1))
+                ph, tl = apply_scatter(
+                    ph, tl, sct, zid, generator_draws(
+                        scat_seed, int(st.max_scatter_tries)), ctx, st)
         rnd += 1
         it_tot += res.it_used
     tl = tl._replace(trk_rounds=tl.trk_rounds + rnd)
     ph = ph._replace(dcen=torch.where(ph.alive, 0.0, ph.dcen))
     return ph, tl, ev
+
+
+def apply_scatter(ph: PhotonArray, tl: Tallies, sct: torch.Tensor,
+                  zid: torch.Tensor, draw: ScatterDrawFn, ctx: TrackContext,
+                  st: TrackStatics) -> Tuple[PhotonArray, Tallies]:
+    """Execute the Compton scatters of the lanes ``sct`` (the ikind=3
+    branch, imctrk2d.f:580-684) with stratified tail splitting: the parent
+    samples the electron stratum below the tail boundary c = cdf[strat_icut]
+    with weight 1 - p_tail; M = strat_copies copies in free slots each
+    sample an equal sub-stratum of the tail [c, 1) with weight p_tail / M.
+    Placement is all-or-nothing per scatter, in slot order, while free
+    slots last, so the strata stay exactly unbiased. Only the scattering
+    lanes are computed (one host read of their count)."""
+    if not st.strat_split:
+        raise NotImplementedError(
+            "compton2d_tpu_torch: the scatter outside the kernel without "
+            "strat_split is not ported yet")
+    f32 = torch.float32
+    nzr = st.nz * st.nr
+    num_nt = ctx.cdf_nt.shape[1]
+    m_cp = max(int(st.strat_copies), 1)
+    idx = torch.nonzero(sct).reshape(-1)           # scattering slots
+    z = zid[idx].long()
+    e_pre, mu_pre = ph.e[idx], ph.mu[idx]
+    cphi_pre, sphi_pre = ph.cphi[idx], ph.sphi[idx]
+    w_par = ph.w[idx]
+    cdf_rows = ctx.cdf_nt[z]                       # (k, num_nt)
+    c = cdf_rows[:, st.strat_icut]
+    p_tail = torch.clamp(1.0 - c, 0.0, 1.0)
+    want = (p_tail > st.strat_p_min) & (p_tail <= st.strat_p_max)
+    free_slots = torch.nonzero(~ph.alive).reshape(-1)   # slot of free rank
+    rank = torch.cumsum(want.to(torch.int32), dim=0) - 1
+    placed = want & ((rank + 1) * m_cp <= free_slots.shape[0])
+
+    # 1/Z with Z = <sigma_KN ratio> = sig_s / (n_eff sigma_T L)
+    sig_s = torch.clamp_min(loggrid_interp(
+        ctx.opac_zone[:, :, 0], z, e_pre, ctx.e_ph_log0, ctx.e_ph_dlog),
+        1e-30)
+    inv_z = 1.0 / torch.clamp_min(sig_s * ctx.inv_nsigt[z], 1e-30)
+    need = torch.ones_like(want)
+    res_p = scatter_stratified(
+        e_pre, mu_pre, cphi_pre, sphi_pre, cdf_rows, ctx.gnt,
+        torch.zeros_like(c), torch.where(placed, c, 1.0), inv_z,
+        draw(0, 1, idx), need)
+    w_pre_p = torch.where(placed, w_par * (1.0 - p_tail), w_par)
+    w_new_p = w_pre_p * res_p.wscale
+    d_e = [w_new_p - w_pre_p]
+    d_zone, d_gam = [z], [res_p.i_gam]
+    ph = ph._replace(
+        e=ph.e.index_copy(0, idx, res_p.e),
+        w=ph.w.index_copy(0, idx, w_new_p),
+        mu=ph.mu.index_copy(0, idx, res_p.mu),
+        cphi=ph.cphi.index_copy(0, idx, res_p.cphi),
+        sphi=ph.sphi.index_copy(0, idx, res_p.sphi),
+    )
+
+    pl = torch.nonzero(placed).reshape(-1)         # ranks 0..n_placed-1
+    n_pl = pl.shape[0]
+    if n_pl:
+        # copy m of the parent of rank j goes to the free slot of rank
+        # j * M + m; copies are laid out (M, n_placed), copy-major
+        slots = free_slots[:n_pl * m_cp].reshape(n_pl, m_cp).t().reshape(-1)
+        m_lo = torch.tensor([m * 1.0 / m_cp for m in range(m_cp)],
+                            dtype=f32, device=c.device)[:, None]
+        m_hi = torch.tensor([(m + 1.0) / m_cp for m in range(m_cp)],
+                            dtype=f32, device=c.device)[:, None]
+        cp = c[pl][None, :]
+        u_lo = (cp + (1.0 - cp) * m_lo).reshape(-1)
+        last = torch.arange(m_cp, device=c.device)[:, None] == m_cp - 1
+        u_hi = torch.where(last, 1.0, cp + (1.0 - cp) * m_hi).reshape(-1)
+
+        def rep(x):
+            return x[pl].repeat(m_cp)
+
+        res_c = scatter_stratified(
+            rep(e_pre), rep(mu_pre), rep(cphi_pre), rep(sphi_pre),
+            cdf_rows[pl].repeat(m_cp, 1), ctx.gnt, u_lo, u_hi, rep(inv_z),
+            draw(1, m_cp, idx[pl]), torch.ones_like(u_lo, dtype=torch.bool))
+        w_pre_c = rep(w_par * p_tail * float(np.float32(1.0 / m_cp)))
+        w_new_c = w_pre_c * res_c.wscale
+        d_e.append(w_new_c - w_pre_c)
+        d_zone.append(rep(z))
+        d_gam.append(res_c.i_gam)
+        par = idx[pl].repeat(m_cp)
+        ph = ph._replace(
+            e=ph.e.index_copy(0, slots, res_c.e),
+            w=ph.w.index_copy(0, slots, w_new_c),
+            w0=ph.w0.index_copy(0, slots, torch.clamp_min(w_new_c, 1e-30)),
+            r=ph.r.index_copy(0, slots, ph.r[par]),
+            z=ph.z.index_copy(0, slots, ph.z[par]),
+            mu=ph.mu.index_copy(0, slots, res_c.mu),
+            cphi=ph.cphi.index_copy(0, slots, res_c.cphi),
+            sphi=ph.sphi.index_copy(0, slots, res_c.sphi),
+            dcen=ph.dcen.index_copy(0, slots, ph.dcen[par]),
+            jz=ph.jz.index_copy(0, slots, ph.jz[par]),
+            kr=ph.kr.index_copy(0, slots, ph.kr[par]),
+            alive=ph.alive.index_fill(0, slots, True),
+        )
+
+    d_e, d_zone, d_gam = torch.cat(d_e), torch.cat(d_zone), torch.cat(d_gam)
+    tl = tl._replace(
+        edep=tl.edep + segment_sum(d_e, d_zone, nzr).reshape(st.nz, st.nr),
+        e_ic=tl.e_ic + segment_sum(d_e, d_gam, num_nt),
+        n_esp=tl.n_esp + segment_sum(torch.ones_like(d_e), d_gam, num_nt),
+        e_scatter=tl.e_scatter + torch.sum(d_e),
+    )
+    return ph, tl
 
 
 def _leak(ph: PhotonArray, tl: Tallies, ev: EventBuffer, mask, jnew, knew,

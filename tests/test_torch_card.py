@@ -1,4 +1,5 @@
-"""The flight kernel against its plain PyTorch version on a CUDA card.
+"""The flight kernel, in its inline-scatter and strat modes, against its
+plain PyTorch version on a CUDA card.
 
 These tests need the card and skip without one. They import neither jax
 nor the JAX package, so they also run on a machine without jax:
@@ -63,9 +64,9 @@ def _inputs(dev, seed=0):
     return [ph[k] for k in FIELDS], tables, seeds
 
 
-def _run(fn, args, tables, seeds, max_iters):
+def _run(fn, args, tables, seeds, max_iters, inline=True):
     return fn(*args, tables, seeds, nz=NZ, nr=NR, weight_floor=1e-10,
-              max_iters=max_iters, max_tries=64)
+              max_iters=max_iters, max_tries=64, inline_scatter=inline)
 
 
 def test_kernel_one_iteration_lane_for_lane(card):
@@ -96,5 +97,36 @@ def test_kernel_many_iterations_and_repeatable(card):
     assert float(same.float().mean()) >= 0.99
     assert float(k.sct_cnt.float().mean()) > 0.5
     k2 = _run(flight.flight_step, args, tables, seeds, 64)
+    for a, b in zip(k, k2):
+        assert torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b
+
+
+def test_strat_mode_lane_for_lane_and_repeatable(card):
+    """inline_scatter=False: collisions freeze with FLAG_SCATTER. One
+    iteration integers exact; 64 iterations >= 99% identical lanes with
+    every frozen lane of the plain version frozen in the kernel too; two
+    launches bitwise equal; the strat-mode launch count rises."""
+    args, tables, seeds = _inputs(card, seed=2)
+    before = flight.STRAT_LAUNCHES
+    k = _run(flight.flight_step, args, tables, seeds, 1, inline=False)
+    assert flight.STRAT_LAUNCHES == before + 1
+    assert k.iglog.shape[0] == k.delog.shape[0] == 0   # nothing logged
+    p = _run(flight.flight_step_reference, args, tables, seeds, 1,
+             inline=False)
+    for name in INTS:
+        assert torch.equal(getattr(k, name).long(),
+                           getattr(p, name).long()), name
+    k = _run(flight.flight_step, args, tables, seeds, 64, inline=False)
+    p = _run(flight.flight_step_reference, args, tables, seeds, 64,
+             inline=False)
+    same = torch.ones(N, dtype=torch.bool, device=card)
+    for name in INTS:
+        same &= getattr(k, name).long() == getattr(p, name).long()
+    assert float(same.float().mean()) >= 0.99
+    frozen = p.flag == flight.FLAG_SCATTER
+    assert int(frozen.sum()) > 0 and int(k.sct_cnt.sum()) == 0
+    assert float((k.flag[frozen] == flight.FLAG_SCATTER).float().mean()) \
+        >= 0.99
+    k2 = _run(flight.flight_step, args, tables, seeds, 64, inline=False)
     for a, b in zip(k, k2):
         assert torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b

@@ -1,7 +1,9 @@
 """The port's flight kernel wrapper and plain version against the JAX
 Pallas kernel ``flight_step_v2`` run in interpret mode, at the shapes of
-``tests/test_flight_pallas2.py``. Both draw their random numbers from the
-same counter hash, so they agree lane for lane."""
+``tests/test_flight_pallas2.py``, in both kernel modes: the scatter
+inlined, and the strat mode where collisions freeze with FLAG_SCATTER.
+Both draw their random numbers from the same counter hash, so they agree
+lane for lane."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -54,7 +56,7 @@ def _inputs(nz=NZ, nr=NR, n=2 * fp2.TILE, n_vol=48, num_nt=40, sig=1.0,
     return ph, tab, seeds
 
 
-def _run_jax(ph, tab, seeds, max_iters, nz=NZ, nr=NR):
+def _run_jax(ph, tab, seeds, max_iters, nz=NZ, nr=NR, inline=True):
     nzr = nz * nr
     ktab, dims = fp2.build_kernel_tables(
         jnp.asarray(tab["opac"]), jnp.zeros((nzr, 32), jnp.float32),
@@ -67,7 +69,7 @@ def _run_jax(ph, tab, seeds, max_iters, nz=NZ, nr=NR):
             "e", "w", "w0", "r", "z", "mu", "cphi", "sphi", "dcen", "jz",
             "kr", "alive")),
         ktab, jnp.asarray(seeds), dims=dims, nz=nz, nr=nr,
-        pair_switch=False, inline_scatter=True, weight_floor=1e-10,
+        pair_switch=False, inline_scatter=inline, weight_floor=1e-10,
         max_iters=max_iters, max_tries=64, interpret=True,
     )
     return [np.asarray(o) for o in out], ktab, dims
@@ -82,13 +84,15 @@ def _tables_torch(tab):
     )
 
 
-def _run_torch(ph, tab, seeds, max_iters, nz=NZ, nr=NR, fn=None):
+def _run_torch(ph, tab, seeds, max_iters, nz=NZ, nr=NR, fn=None,
+               inline=True):
     fn = fn or flight.flight_step_reference
     args = [torch.as_tensor(ph[k]) for k in (
         "e", "w", "w0", "r", "z", "mu", "cphi", "sphi", "dcen", "jz", "kr",
         "alive")]
     return fn(*args, _tables_torch(tab), torch.as_tensor(seeds), nz=nz,
-              nr=nr, weight_floor=1e-10, max_iters=max_iters, max_tries=64)
+              nr=nr, weight_floor=1e-10, max_iters=max_iters, max_tries=64,
+              inline_scatter=inline)
 
 
 # flight_step_v2 output positions of the FlightResult fields
@@ -113,13 +117,16 @@ def _assert_sums(res, jo, tol, e_scale):
                                    rtol=tol, atol=tol * e_scale, err_msg=name)
 
 
-def test_one_iteration_matches_pallas_interpret_lane_for_lane():
-    """max_iters=1: integer state exact; floats rtol 1e-5 (atol 1e-6 for
-    values near zero), since XLA's and torch's log/exp/sqrt may differ in
-    the last bit."""
+@pytest.mark.parametrize("inline", [True, False])
+def test_one_iteration_matches_pallas_interpret_lane_for_lane(inline):
+    """max_iters=1: integer state exact (FLAG_SCATTER included); floats
+    rtol 1e-5 (atol 1e-6 for values near zero), since XLA's and torch's
+    log/exp/sqrt may differ in the last bit."""
     ph, tab, seeds = _inputs(sig=3.0)
-    jo, _, _ = _run_jax(ph, tab, seeds, 1)
-    res = _run_torch(ph, tab, seeds, 1)
+    jo, _, _ = _run_jax(ph, tab, seeds, 1, inline=inline)
+    res = _run_torch(ph, tab, seeds, 1, inline=inline)
+    n_sct = int((res.flag == flight.FLAG_SCATTER).sum())
+    assert (n_sct > 0) != inline   # the strat mode froze collisions
     for name, pos in _INT_POS.items():
         np.testing.assert_array_equal(
             getattr(res, name).numpy().astype(np.int64),
@@ -131,20 +138,38 @@ def test_one_iteration_matches_pallas_interpret_lane_for_lane():
     _assert_sums(res, jo, 1e-5, float(ph["w"].sum()))
 
 
-def test_many_iterations_agree_with_pallas_interpret():
+@pytest.mark.parametrize("inline", [True, False])
+def test_many_iterations_agree_with_pallas_interpret(inline):
     """max_iters=64 with scatters: >= 99% of lanes with identical integer
     state (last-bit differences can flip a rare decision), tallies and
-    sums to 1e-3 of their scale, identical scatter logs on those lanes."""
+    sums to 1e-3 of their scale, identical scatter logs on those lanes. In
+    the strat mode every FLAG_SCATTER lane of the reference is one here
+    too, and collisions froze instead of scattering."""
     ph, tab, seeds = _inputs(sig=6.0, kap=0.05, dcen=1.0, seed=3)
-    jo, _, _ = _run_jax(ph, tab, seeds, 64)
-    res = _run_torch(ph, tab, seeds, 64)
+    jo, _, _ = _run_jax(ph, tab, seeds, 64, inline=inline)
+    res = _run_torch(ph, tab, seeds, 64, inline=inline)
     same = np.ones(ph["e"].shape[0], bool)
     for name, pos in _INT_POS.items():
         same &= (getattr(res, name).numpy().astype(np.int64)
                  == jo[pos].astype(np.int64))
     assert same.mean() >= 0.99, same.mean()
-    assert res.sct_cnt.float().mean() > 1.0   # the scatter machine ran
-    np.testing.assert_array_equal(res.iglog.numpy()[same], jo[21][same])
+    if inline:
+        assert res.sct_cnt.float().mean() > 1.0   # the scatter machine ran
+    else:
+        frozen = jo[_INT_POS["flag"]] == flight.FLAG_SCATTER
+        assert frozen.mean() > 0.5
+        np.testing.assert_array_equal(
+            res.flag.numpy()[frozen], flight.FLAG_SCATTER)
+        for name, pos in _FLOAT_POS.items():
+            np.testing.assert_allclose(
+                getattr(res, name).numpy()[frozen & same],
+                jo[pos][frozen & same], rtol=1e-5, atol=1e-6, err_msg=name)
+        assert int(res.sct_cnt.sum()) == 0
+        # nothing is logged: the strat mode's logs have no rows
+        assert res.iglog.shape[0] == res.delog.shape[0] == 0
+        assert np.all(jo[21] == -1)
+    if inline:
+        np.testing.assert_array_equal(res.iglog.numpy()[same], jo[21][same])
     _assert_sums(res, jo, 1e-3, float(ph["w"].sum()))
 
 

@@ -66,6 +66,39 @@ def test_pcr_and_thomas_match_reference():
     np.testing.assert_allclose(got, th, rtol=RTOL, atol=1e-7)
 
 
+def test_chang_cooper_under_strong_heating():
+    """A heating drift so strong against the dispersion that the
+    Chang-Cooper argument w = dg B / C falls below -500 in the first two
+    rows (a hard photon field heating cold electrons). There the port
+    takes the weights' limits (w / (e^w - 1) -> -w, w / (1 - e^-w) -> 0):
+    its rows stay an M-matrix (a, c <= 0, b >= 1) and the PCR solve is
+    finite and equals the Thomas oracle, rtol 1e-4. The reference clips w
+    at -500, which makes c positive there. Rows whose |w| stays within 500
+    match the reference's coefficients as in test_chang_cooper_coeffs_match.
+    """
+    gnt, dgdt, disp, d_t = _cc_inputs(4)
+    g = gnt + 1.0
+    dgdt[:2] = (1e-2 * g).astype(np.float32)
+    disp[:2] = (1e-9 * g * g / 2.0).astype(np.float32)
+    tj = 3.0e4
+    a_p, b_p, c_p = (_np(x) for x in pcc.chang_cooper_coeffs(
+        *map(torch.as_tensor, (gnt, dgdt, disp, d_t)), tj))
+    a_j, b_j, c_j = (_np(x) for x in jcc.chang_cooper_coeffs(
+        *map(jnp.asarray, (gnt, dgdt, disp, d_t)), tj))
+    assert np.any(c_j[:2] > 0.0)          # the reference's sign fault
+    assert np.all(a_p <= 0.0) and np.all(c_p <= 0.0) and np.all(b_p >= 1.0)
+    for x, y in ((a_p, a_j), (b_p, b_j), (c_p, c_j)):
+        np.testing.assert_allclose(x[2:], y[2:], rtol=1e-5,
+                                   atol=1e-7 * np.abs(y[2:]).max())
+    d = np.random.default_rng(5).uniform(0.0, 1.0, a_p.shape).astype(
+        np.float32)
+    abcd = [torch.as_tensor(x) for x in (a_p, b_p, c_p, d)]
+    got = _np(pcc.pcr_solve(*abcd))
+    assert np.all(np.isfinite(got))
+    np.testing.assert_allclose(got, _np(pcc.thomas_solve(*abcd)), rtol=RTOL,
+                               atol=1e-7)
+
+
 @pytest.fixture(scope="module")
 def carried():
     """A reference Simulation's initial state carried over to the port,
@@ -74,13 +107,13 @@ def carried():
     kw = dict(nz=3, nr=2, nst=2000, n_slots=4096, num_nt=50, n_vol=48,
               nphfield=48, t_const=False, seed=3)
     jsim = jex.small_corona(**kw)
-    psim = pex.small_corona(**kw)
+    psim = pex.small_corona(**kw, device="cpu")
     psim.step()
     n_field = psim.last_outputs.tallies.n_field.numpy()
     js, jt, jg = jsim.state, jsim.tables, jsim.grid
     state, tables, grid, _ = convert.from_reference(
         convert.flatten(js), convert.flatten(jt), convert.flatten(jg),
-        convert.flatten(jsim.src_static))
+        convert.flatten(jsim.src_static), device="cpu")
     l_min = jnp.minimum(jg.dz, jg.dr) * jnp.ones_like(jg.vol)
     z = js.zones
     ve = j_volume_em(jt.e_ph, jt.gnt, z.f_nt, z.tea, z.n_e, z.B_field,

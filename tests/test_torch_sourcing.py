@@ -28,7 +28,8 @@ def setup():
                             n_vol=64, nphfield=64, seed=1)
     _, tables, grid, src = convert.from_reference(
         convert.flatten(jsim.state), convert.flatten(jsim.tables),
-        convert.flatten(jsim.grid), convert.flatten(jsim.src_static))
+        convert.flatten(jsim.grid), convert.flatten(jsim.src_static),
+        device="cpu")
     return jsim, tables, grid, src
 
 

@@ -136,3 +136,105 @@ def test_init_zone_state_matches(amxwl):
         np.testing.assert_allclose(a, b, rtol=1e-5,
                                    atol=1e-6 * np.abs(b).max() + 1e-30,
                                    err_msg=name)
+
+
+def test_copied_io_modules_and_mrk421_constants_match():
+    """The port's copies of the numpy-only io code are the reference's
+    source text, and its Mrk 421 and blazar configurations, constants and
+    initial zones equal the reference's."""
+    import inspect
+
+    from compton2d_tpu import examples as jex
+    from compton2d_tpu.io import checkpoint as jckpt
+    from compton2d_tpu.io import outputs as jout
+    from compton2d_tpu.io import postprocess as jpp
+    from compton2d_tpu_torch import examples as pex
+    from compton2d_tpu_torch.io import checkpoint as pckpt
+    from compton2d_tpu_torch.io import outputs as pout
+    from compton2d_tpu_torch.io import postprocess as ppp
+
+    for ref, port, names in (
+            (jpp, ppp, ("doppler_transform", "LightCurves", "light_curves",
+                        "SED", "sed")),
+            (jout, pout, ("OutputAccumulator",)),
+            (jckpt, pckpt, ("WalltimeGuard",))):
+        for name in names:
+            assert inspect.getsource(getattr(port, name)) == \
+                inspect.getsource(getattr(ref, name)), name
+    assert (ppp.C_INV, pout.KEV_TO_HZ) == (jpp.C_INV, jout.KEV_TO_HZ)
+    for name in ("MRK421_GAMMA", "MRK421_MU_RANGE", "MRK421_DT_S",
+                 "MRK421_BANDS"):
+        assert getattr(pex, name) == getattr(jex, name), name
+    kw = dict(nz=3, nr=2, nst=500, n_slots=2048)
+    for ctor in ("mrk421", "blazar_jet"):
+        js = getattr(jex, ctor)(**kw)
+        ps = getattr(pex, ctor)(**kw, device="cpu")
+        assert dataclasses.asdict(ps.cfg) == dataclasses.asdict(js.cfg), ctor
+        for f in dataclasses.fields(js.zone_init):
+            np.testing.assert_array_equal(
+                np.asarray(getattr(ps.zone_init, f.name)),
+                np.asarray(getattr(js.zone_init, f.name)), err_msg=f.name)
+
+
+def test_zone_pass_on_converted_mrk421_state():
+    """A reference mrk421 state carried over with convert.from_reference:
+    the B field, volume emission and Compton opacity of the port match the
+    reference's on it, allclose 1e-5, with float32 denormals flushed as
+    XLA flushes them. At the radio end of the Mrk 421 grid the terms of the
+    synchrotron self-absorption integral are subnormal: the reference's
+    kappa is 0 there, and the port, which keeps denormals (on the CPU and
+    on the card), finds a positive kappa that differs nowhere else."""
+    import jax.numpy as jnp
+
+    from compton2d_tpu import examples as jex
+    from compton2d_tpu_torch import convert
+
+    jsim = jex.mrk421(nz=4, nr=2, nst=1500, n_slots=8192, num_nt=160,
+                      n_vol=64, nphfield=64)
+    js, jt, jg = jsim.state, jsim.tables, jsim.grid
+    state, tabs, grid, _ = convert.from_reference(
+        convert.flatten(js), convert.flatten(jt), convert.flatten(jg),
+        convert.flatten(jsim.src_static), device="cpu")
+    zj, zp = js.zones, state.zones
+
+    def close(a, b, name):
+        b = np.asarray(b)
+        np.testing.assert_allclose(_np(a), b, rtol=1e-5,
+                                   atol=1e-8 * np.abs(b).max() + 1e-37,
+                                   err_msg=name)
+
+    bj = jem.equipartition_b(zj.ep_switch, zj.tea, zj.tna, zj.n_e, zj.f_pair,
+                             zj.B_field, jt.gamma_bar.forward)
+    bp = pem.equipartition_b(zp.ep_switch, zp.tea, zp.tna, zp.n_e, zp.f_pair,
+                             zp.B_field, tabs.gamma_bar.forward)
+    close(bp, bj, "B")
+    lj = jnp.minimum(jg.dz, jg.dr) * jnp.ones_like(jg.vol)
+    lp = torch.minimum(grid.dz, grid.dr) * torch.ones_like(grid.vol)
+    vj = jem.volume_em(jt.e_ph, jt.gnt, zj.f_nt, zj.tea, zj.n_e, bj,
+                       zj.amxwl, jg.vol, jg.zone_surf, lj, js.dt, jt.sync,
+                       jsim.scales, f_pair=zj.f_pair)
+    scales = punits.make_scales(jsim.cfg.grid.z_max, jsim.cfg.grid.r_max,
+                                jsim.scales.E)
+
+    def port_volume_em():
+        return pem.volume_em(tabs.e_ph, tabs.gnt, zp.f_nt, zp.tea, zp.n_e,
+                             torch.as_tensor(np.array(bj)), zp.amxwl,
+                             grid.vol, grid.zone_surf, lp, state.dt, scales,
+                             f_pair=zp.f_pair)
+
+    assert torch.set_flush_denormal(True)
+    try:
+        vp = port_volume_em()
+    finally:
+        torch.set_flush_denormal(False)
+    for name in vj._fields:
+        close(getattr(vp, name), getattr(vj, name), name)
+    kap_j = np.asarray(vj.kappa_tot)
+    kap_p = port_volume_em().kappa_tot.numpy()
+    differ = kap_p != kap_j
+    assert np.all(kap_j[differ] == 0.0) and np.all(kap_p[differ] > 0.0)
+    e_low = np.asarray(jt.e_ph)[np.any(differ, axis=(0, 1))]
+    assert e_low.size and e_low.max() < 3e-2
+    close(pcompton.zone_sigma_table(tabs.sigma_e, zp.f_nt, tabs.gnt, zp.n_e),
+          jcompton.zone_sigma_table(jt.sigma_e, zj.f_nt, jt.gnt, zj.n_e),
+          "sigma_zone")

@@ -10,7 +10,7 @@ This module never imports jax.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -19,7 +19,7 @@ from compton2d_tpu_torch.grid import Grid
 from compton2d_tpu_torch.physics.electron_dist import GammaBarTable
 from compton2d_tpu_torch.physics.emissivity import SyncKernelTable
 from compton2d_tpu_torch.state import PhotonArray, SimState, ZoneState
-from compton2d_tpu_torch.tables import Tables
+from compton2d_tpu_torch.tables import PairTables, Tables
 from compton2d_tpu_torch.transport.sourcing import SourceStatic
 
 
@@ -59,10 +59,13 @@ def from_reference(
     state: Dict[str, np.ndarray], tables: Dict[str, np.ndarray],
     grid: Dict[str, np.ndarray], src: Dict[str, np.ndarray],
     device="cuda", seed: int = 0,
-) -> Tuple[SimState, Tables, Grid, SourceStatic]:
+    pair_tables: Optional[Dict[str, np.ndarray]] = None,
+) -> Tuple:
     """The port's (SimState, Tables, Grid, SourceStatic) from flattened
-    reference objects. The reference's threefry key has no counterpart:
-    the port's ``state.key`` is a new generator seeded with ``seed``."""
+    reference objects, and the port's PairTables after them when the
+    reference's flattened ``pair_tables`` are given. The reference's
+    threefry key has no counterpart: the port's ``state.key`` is a new
+    generator seeded with ``seed``."""
     dev = torch.device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(int(seed))
@@ -79,9 +82,12 @@ def from_reference(
     sim_state = SimState(**kw)
     tab = _build(Tables, tables, "", dev, nested={
         "sync": SyncKernelTable, "gamma_bar": GammaBarTable})
-    return (
+    out = (
         sim_state,
         tab,
         _build(Grid, grid, "", dev),
         _build(SourceStatic, src, "", dev),
     )
+    if pair_tables is not None:
+        out += (_build(PairTables, pair_tables, "", dev),)
+    return out

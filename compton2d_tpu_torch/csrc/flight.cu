@@ -2,27 +2,34 @@
 // Compton scatter sampler inlined, or with collisions handed back.
 //
 // Replaces compton2d_tpu/transport/flight_pallas2.py::_flight_kernel_v2 in
-// its resident-table, pair_switch=False modes (the Pallas call at
-// flight_pallas2.py:1124), selected at run time by `inline_scatter`:
+// its resident-table modes (the Pallas call at flight_pallas2.py:1124),
+// selected at run time by `inline_scatter`:
 //   1  (inline scatter) each thread owns one photon slot and runs the
 //      per-lane state machine FLY -> SCT_A -> SCT_B -> FLY until census,
 //      leak, weight kill or max_iters;
 //   0  (stratified splitting) a collision freezes the lane with
 //      FLAG_SCATTER after the move, as a leak does, so that the caller's
 //      stratified sampler places the tail copies (flight_pallas2.py:
-//      618-625); SCT_A / SCT_B and the event logs never run.
+//      618-625); SCT_A / SCT_B and the event logs never run;
+// and by `pair_switch` (either scatter mode):
+//   1  the FLY state adds the zone's gamma-gamma opacity, log-linear on the
+//      e_gg grid and scaled down by e / e_gg0 below it, to the absorption;
+//      above 47 keV its share of the absorbed energy goes to epair instead
+//      of edep (flight_pallas2.py:470-496, 549-560);
+//   0  no gamma-gamma absorption (the kgg table is not read).
 // The states:
-//   FLY   optical-depth draw, log-linear sigma/kappa lookup, distance to the
-//         next r-shell / z-plane, event select, continuous absorption with
-//         per-zone edep/prdep tallies, weight-floor kill, move, zone hop or
-//         leak (FLAG_LEAK keeps the target jn/kn);
+//   FLY   optical-depth draw, log-linear sigma/kappa (and kgg) lookup,
+//         distance to the next r-shell / z-plane, event select, continuous
+//         absorption with per-zone edep/prdep tallies and the pair energy,
+//         weight-floor kill, move, zone hop or leak (FLAG_LEAK keeps the
+//         target jn/kn);
 //   SCT_A guide-bracketed electron-CDF draw (SCAN_S bins per iteration),
 //         flux-factor angle and Klein-Nishina acceptance, force-accept of
 //         the last candidate at max_tries;
 //   SCT_B sz rejection, boost, azimuth, w *= E'/E, event log (K_LOG deep).
 //
 // What bounds it on the H100: divergent, latency-bound reads of the zone
-// tables (sigma/kappa rows, CDF, guide) and the per-lane branchy state
+// tables (sigma/kappa/kgg rows, CDF, guide) and the per-lane branchy state
 // machine. It does few FLOPs per byte and is not limited by bandwidth or
 // arithmetic. The tables are read straight from global memory in their
 // natural layout (they stay in L2); the TPU's (rows, 128) layout and
@@ -92,6 +99,7 @@ struct Pointers {
   // zone tables (natural layout)
   const float* sig;    // (nzr, n_vol)
   const float* kap;    // (nzr, n_vol)
+  const float* kgg;    // (nzr, n_gg)
   const float* cdf;    // (nzr, num_nt)
   const int* guide;    // (nzr, GUIDE_G)
   const float* gm1;    // (num_nt - 1,)
@@ -107,11 +115,13 @@ struct Pointers {
   int* iglog;          // (n, K_LOG)
   float* delog;        // (n, K_LOG)
 };
-constexpr int N_POINTERS = 43;
+constexpr int N_POINTERS = 44;
 
 struct Scalars {
-  int n, nz, nr, n_vol, num_nt, max_iters, max_tries, inline_scatter;
-  float e_ph_log0, e_ph_dlog, x_ph_hi, weight_floor;
+  int n, nz, nr, n_vol, n_gg, num_nt, max_iters, max_tries, inline_scatter,
+      pair_switch;
+  float e_ph_log0, e_ph_dlog, x_ph_hi, e_gg_log0, e_gg_dlog, x_gg_hi, e_gg0,
+      weight_floor;
 };
 
 // NaN-propagating min/max/clip, as jnp.maximum / jnp.minimum / jnp.clip
@@ -205,7 +215,8 @@ flight_kernel(Pointers p, Scalars s) {
 
     if (fly) {
       // ---- opacity lookup at the photon energy -------------------------
-      float x_ph = (logf(mx(e, 1e-30f)) - s.e_ph_log0) / s.e_ph_dlog;
+      const float log_e = logf(mx(e, 1e-30f));
+      float x_ph = (log_e - s.e_ph_log0) / s.e_ph_dlog;
       x_ph = clip(x_ph, 0.0f, s.x_ph_hi);
       const int i_ph = (int)floorf(x_ph);
       const float f_ph = x_ph - (float)i_ph;
@@ -215,6 +226,18 @@ flight_kernel(Pointers p, Scalars s) {
       const float sig =
           mx(srow[i_ph] * (1.0f - f_ph) + srow[i_p1] * f_ph, 1e-30f);
       const float kap = krow[i_ph] * (1.0f - f_ph) + krow[i_p1] * f_ph;
+      float kgg = 0.0f;
+      if (s.pair_switch) {
+        // gamma-gamma opacity on the e_gg grid, scaled down below it
+        const float x_gg =
+            clip((log_e - s.e_gg_log0) / s.e_gg_dlog, 0.0f, s.x_gg_hi);
+        const int i_gg = (int)floorf(x_gg);
+        const float f_gg = x_gg - (float)i_gg;
+        const float* grow = p.kgg + (size_t)zid * s.n_gg;
+        kgg = grow[clipi(i_gg, 0, s.n_gg - 1)] * (1.0f - f_gg) +
+              grow[min(i_gg + 1, s.n_gg - 1)] * f_gg;
+        if (!(e > s.e_gg0)) kgg = kgg * e / s.e_gg0;
+      }
 
       // ---- tau draw + geometry + event select --------------------------
       const float u_tau = 1e-12f + u01(seed, itu, 0, lane) * 1.0f;
@@ -261,12 +284,15 @@ flight_kernel(Pointers p, Scalars s) {
       }
 
       // ---- continuous absorption ---------------------------------------
-      const float sigabs = mx(kap + 0.0f, 1e-30f);
+      const float sigabs = mx(kap + kgg, 1e-30f);
       const float xabs = sigabs * trld;
       const float ewnew = (xabs < 100.0f) ? w * expf(-xabs) : 0.0f;
       const float deleabs = mx(w - ewnew, 0.0f);
-      edep_add = deleabs * 1.0f;
-      epair = epair + deleabs * (1.0f - 1.0f);
+      // above 47 keV the gamma-gamma share becomes pairs, not heat
+      const float frac_heat =
+          (s.pair_switch && e > 47.0f) ? kap / sigabs : 1.0f;
+      edep_add = deleabs * frac_heat;
+      epair = epair + deleabs * (1.0f - frac_heat);
       const float u_s = 1e-7f + u01(seed, itu, 1, lane) * ONE_M_1E7;
       const bool tiny_abs = xabs <= 1e-5f;
       const float frac =
@@ -515,11 +541,14 @@ int flight_threads_per_block() { return THREADS; }
 // Launches the kernel on `stream` and returns cudaGetLastError().
 // `ptrs` holds the N_POINTERS device pointers in the order of Pointers.
 // n must be a multiple of TILE; nz * nr <= 1024 keeps the per-warp
-// tallies inside 48 KB of shared memory. inline_scatter is 1 or 0.
+// tallies inside 48 KB of shared memory. inline_scatter and pair_switch
+// are 1 or 0.
 int flight_launch(const uint64_t* ptrs, int n_ptrs, int n, int nz, int nr,
-                  int n_vol, int num_nt, int max_iters, int max_tries,
-                  int inline_scatter, float e_ph_log0, float e_ph_dlog,
-                  float x_ph_hi, float weight_floor, void* stream) {
+                  int n_vol, int n_gg, int num_nt, int max_iters,
+                  int max_tries, int inline_scatter, int pair_switch,
+                  float e_ph_log0, float e_ph_dlog, float x_ph_hi,
+                  float e_gg_log0, float e_gg_dlog, float x_gg_hi,
+                  float e_gg0, float weight_floor, void* stream) {
   if (n_ptrs != N_POINTERS || n % TILE != 0 || nz * nr > 1024)
     return (int)cudaErrorInvalidValue;
   Pointers p;
@@ -528,8 +557,9 @@ int flight_launch(const uint64_t* ptrs, int n_ptrs, int n, int nz, int nr,
   const void** dst = reinterpret_cast<const void**>(&p);
   for (int i = 0; i < N_POINTERS; ++i)
     dst[i] = reinterpret_cast<const void*>(ptrs[i]);
-  Scalars s{n, nz, nr, n_vol, num_nt, max_iters, max_tries,
-            inline_scatter ? 1 : 0, e_ph_log0, e_ph_dlog, x_ph_hi,
+  Scalars s{n, nz, nr, n_vol, n_gg, num_nt, max_iters, max_tries,
+            inline_scatter ? 1 : 0, pair_switch ? 1 : 0, e_ph_log0,
+            e_ph_dlog, x_ph_hi, e_gg_log0, e_gg_dlog, x_gg_hi, e_gg0,
             weight_floor};
   const int nzr = nz * nr;
   const size_t smem = sizeof(float) * ((size_t)WARPS * 2 * nzr + 2 * THREADS);

@@ -2,18 +2,19 @@
 (counterpart of ``compton2d_tpu.driver``).
 
 One step runs the reference's phase order on one device: census clock
-reset, zone pass (B field, emissivities, budget), census roulette,
-emission, tracking through the flight kernel, census tallies, the
-Fokker-Planck electron update and the time advance. dt is constant, as in
-the reference's active code.
+reset, zone pass (B field, emissivities, budget), census roulette, the
+pair fields from the census (pair_switch), emission, tracking through the
+flight kernel, census tallies, the Fokker-Planck electron (and positron)
+update and the time advance. dt is constant, as in the reference's active
+code.
 
 The port covers a part of the reference's options: thermal boundaries,
-synchrotron volume emission and shock injection, census roulette, and
-stratified tail splitting. ``Simulation`` raises ``NotImplementedError``
-naming the option for anything outside it: pair physics, boundary
-reflection (cr_sent != 0), device meshes, file-spectrum boundaries, the
-Coulomb FP drift, adaptive dt, coronal flares, grids above 1024 zones and
-checkpoints.
+synchrotron volume emission and shock injection, census roulette,
+stratified tail splitting and gamma-gamma pair physics. ``Simulation``
+raises ``NotImplementedError`` naming the option for anything outside it:
+boundary reflection (cr_sent != 0), device meshes, file-spectrum
+boundaries, the Coulomb FP drift, adaptive dt, coronal flares, grids above
+1024 zones and checkpoints.
 
 Run-level outputs (``attach_outputs``): the escaping spectrum, light
 curves and temperature profile accumulate on the host from each step's
@@ -40,6 +41,7 @@ from compton2d_tpu_torch.io.outputs import OutputAccumulator
 from compton2d_tpu_torch.physics.compton import SIGMA_T, zone_sigma_table
 from compton2d_tpu_torch.physics.electron_dist import gnt_grid
 from compton2d_tpu_torch.physics.emissivity import equipartition_b, volume_em
+from compton2d_tpu_torch.physics import pairs
 from compton2d_tpu_torch.state import (
     EventBuffer,
     PhotonArray,
@@ -48,13 +50,20 @@ from compton2d_tpu_torch.state import (
     ZoneState,
     init_zone_state,
 )
-from compton2d_tpu_torch.tables import Tables, build_tables
+from compton2d_tpu_torch.tables import (
+    PairTables,
+    Tables,
+    build_pair_tables,
+    build_tables,
+)
 from compton2d_tpu_torch.transport import flight, sourcing
 from compton2d_tpu_torch.transport.population import census_roulette
 from compton2d_tpu_torch.transport.tracking import (
     TrackContext,
     TrackStatics,
     census_tally,
+    hist2d,
+    loggrid_bin,
     segment_sum,
     transport_step,
 )
@@ -160,7 +169,6 @@ def check_slice(cfg: SimConfig, mesh=None) -> None:
     """Raise NotImplementedError for options the port does not run yet."""
     phys, g = cfg.physics, cfg.grid
     unsupported = [
-        (phys.pair_switch, "pair_switch"),
         (phys.cr_sent != 0, "cr_sent != 0 (boundary reflection)"),
         (mesh is not None, "mesh (multi-device)"),
         (any(t < 0.0 for w in cfg.windows for t in (
@@ -246,6 +254,9 @@ class Simulation:
             k_gg=zf(g.nz, g.nr, g.n_gg), dn_pp=zf(g.nz, g.nr, g.num_nt),
             dne_pa=zf(g.nz, g.nr, g.num_nt), dnp_pa=zf(g.nz, g.nr, g.num_nt),
         )
+        self.pair_tables: Optional[PairTables] = (
+            build_pair_tables(cfg.grid, self.scales.L, dev)
+            if cfg.physics.pair_switch else None)
         self.window_sources = build_window_sources(cfg, self.scales, dev)
         self.src_static = self.window_sources.select(0.0, dt0, 0)
         self.last_outputs: Optional[StepOutputs] = None
@@ -274,7 +285,7 @@ class Simulation:
             self._host_time, self._host_dt, self._host_ncycle)
         self._state, out = _step_impl(
             self._state, self.src_static, self.grid, self.tables, self.cfg,
-            self.scales, self._host_ncycle,
+            self.scales, self._host_ncycle, self.pair_tables,
         )
         self._host_time += self._host_dt
         self._host_dt_prev = self._host_dt
@@ -419,9 +430,62 @@ class Simulation:
         }
 
 
+class PairFields(NamedTuple):
+    """Section 1b's results, per zone."""
+
+    nph_raw: torch.Tensor   # (nz, nr, n_gg) census field [cm^-3 keV^-1]
+    nph_fit: torch.Tensor   # (nz, nr, n_gg) its Wien-tail fit
+    k_gg: torch.Tensor      # (nz, nr, n_gg) gamma-gamma opacity [1/L]
+    dn_pp: torch.Tensor     # (nz, nr, num_nt) pair production
+    dne_pa: torch.Tensor    # (nz, nr, num_nt) electron annihilation sink
+    dnp_pa: torch.Tensor    # (nz, nr, num_nt) positron annihilation sink
+
+
+def pair_fields(photons: PhotonArray, zones: ZoneState, tables: Tables,
+                pair_tables: PairTables, grid: Grid, scales: Scales, nz: int,
+                nr: int) -> PairFields:
+    """The pair physics of the census field (imcgen2d.f:354-396): the
+    census photons' number density on the e_gg grid, its smoothed fit,
+    the gamma-gamma opacity, the pair production and the annihilation
+    sinks."""
+    f32 = torch.float32
+    nzr = nz * nr
+    ngg = tables.e_gg.shape[0]
+    egg32 = tables.e_gg.to(f32)
+    gbin, in_gg = loggrid_bin(photons.e, tables.e_gg_log0,
+                              tables.e_gg_dlog, ngg)
+    cnts = torch.where(photons.alive & in_gg,
+                       photons.w / torch.clamp_min(photons.e, 1e-30), 0.0)
+    zid = (torch.clamp(photons.jz, 0, nz - 1) * nr
+           + torch.clamp(photons.kr, 0, nr - 1))
+    nph_scaled = hist2d(cnts, zid, nzr, gbin, ngg)
+    # bin widths; the last bin's "width" is 1 (the reference's choice)
+    de_gg = torch.cat([torch.diff(egg32), egg32.new_ones(1)])
+    nph_phys = (nph_scaled * float(np.float32(scales.nfield_to_dgic))
+                / grid.vol.reshape(-1, 1).to(f32) / de_gg[None, :])
+    nph_sm = pairs.nph_smooth(nph_phys, egg32,
+                              zones.tea.reshape(-1).to(f32))
+    k_gg = torch.matmul(nph_sm, pair_tables.kgg_mat.T)
+    dn_pp = pairs.dn_pp_from_field(nph_sm, pair_tables.pp_tensor)
+    dne_pa, dnp_pa = pairs.pa_rates(
+        zones.f_nt.reshape(nzr, -1).to(f32),
+        zones.n_pos.reshape(nzr, -1).to(f32),
+        zones.n_e.reshape(-1).to(f32), pair_tables.vsigma,
+        tables.gnt.to(f32))
+    return PairFields(
+        nph_raw=nph_phys.reshape(nz, nr, ngg),
+        nph_fit=nph_sm.reshape(nz, nr, ngg),
+        k_gg=k_gg.reshape(nz, nr, ngg),
+        dn_pp=dn_pp.reshape(nz, nr, -1),
+        dne_pa=dne_pa.reshape(nz, nr, -1),
+        dnp_pa=dnp_pa.reshape(nz, nr, -1),
+    )
+
+
 def _step_impl(state: SimState, src: sourcing.SourceStatic, grid: Grid,
-               tables: Tables, cfg: SimConfig, scales: Scales,
-               ncycle: int) -> Tuple[SimState, StepOutputs]:
+               tables: Tables, cfg: SimConfig, scales: Scales, ncycle: int,
+               pair_tables: Optional[PairTables] = None,
+               ) -> Tuple[SimState, StepOutputs]:
     """One step. ``ncycle`` is the host mirror of ``state.ncycle``."""
     g, phys, run = cfg.grid, cfg.physics, cfg.run
     nz, nr = g.nz, g.nr
@@ -470,7 +534,17 @@ def _step_impl(state: SimState, src: sourcing.SourceStatic, grid: Grid,
     else:
         e_rr = torch.zeros((), dtype=f32, device=dev)
         n_rr = torch.zeros((), dtype=i32, device=dev)
-    nph_raw = torch.zeros((nz, nr, g.n_gg), dtype=f32, device=dev)
+
+    # ---- 1b. pair physics from the census field (imcgen2d.f:354-396) ----
+    if phys.pair_switch:
+        pf = pair_fields(photons, zones, tables, pair_tables, grid, scales,
+                         nz, nr)
+        state = state._replace(k_gg=pf.k_gg, dn_pp=pf.dn_pp,
+                               dne_pa=pf.dne_pa, dnp_pa=pf.dnp_pa)
+        nph_raw, nph_fit = pf.nph_raw, pf.nph_fit
+    else:
+        nph_raw = torch.zeros((nz, nr, g.n_gg), dtype=f32, device=dev)
+        nph_fit = nph_raw
 
     # ---- 2. emit new photons --------------------------------------------
     draws = sourcing.draw_emit_uniforms(gen, n, dev)
@@ -481,8 +555,12 @@ def _step_impl(state: SimState, src: sourcing.SourceStatic, grid: Grid,
     )
 
     # ---- 3. tracking ----------------------------------------------------
+    # pairs add 2 f_pair scatterers per electron (imctrk2d.f:164-168)
+    f_pair = zones.f_pair if phys.pair_switch else None
+    n_scat = zones.n_e * (1.0 + 2.0 * f_pair) if phys.pair_switch \
+        else zones.n_e
     sigma_zone = zone_sigma_table(
-        tables.sigma_e, zones.f_nt, tables.gnt, zones.n_e
+        tables.sigma_e, zones.f_nt, tables.gnt, zones.n_e, f_pair
     ).reshape(nzr, -1).to(f32)
     kappa_zone = ve.kappa_tot.reshape(nzr, -1).to(f32)
     ctx = TrackContext(
@@ -509,12 +587,13 @@ def _step_impl(state: SimState, src: sourcing.SourceStatic, grid: Grid,
         # (Z = <sigma_KN ratio> = sig_s * inv_nsigt, the quadrature of
         # zone_sigma_table)
         inv_nsigt=1.0 / torch.clamp_min(
-            zones.n_e.reshape(-1).to(f32)
+            n_scat.reshape(-1).to(f32)
             * float(np.float32(SIGMA_T * scales.L))
             * torch.sum(zones.f_nt[..., :-1] * torch.diff(tables.gnt),
                         dim=-1).reshape(-1).to(f32),
             1e-38,
         ),
+        kgg_zone=state.k_gg.reshape(nzr, -1).to(f32),
     )
     strat_icut = 0
     if cfg.source.strat_split:
@@ -527,6 +606,7 @@ def _step_impl(state: SimState, src: sourcing.SourceStatic, grid: Grid,
         max_iters=run.max_flight_iters,
         max_scatter_tries=run.max_scatter_tries,
         weight_floor=cfg.source.weight_floor, spec_switch=phys.spec_switch,
+        pair_switch=bool(phys.pair_switch),
         strat_split=cfg.source.strat_split, strat_icut=strat_icut,
         strat_p_max=cfg.source.strat_p_max,
         strat_copies=cfg.source.strat_copies,
@@ -551,7 +631,8 @@ def _step_impl(state: SimState, src: sourcing.SourceStatic, grid: Grid,
         fpr = fp_step(
             zones, tallies.n_field, tables, grid.vol, float(g.z_max),
             grid.dz, state.dt, state.time, ve.eloss_sy, phys, scales,
-            eloss_br=ve.eloss_br,
+            eloss_br=ve.eloss_br, dn_pp=state.dn_pp, dne_pa=state.dne_pa,
+            dnp_pa=state.dnp_pa,
         )
         # only apply after the field is established (ncycle > 0)
         apply = ncycle > 0
@@ -581,6 +662,6 @@ def _step_impl(state: SimState, src: sourcing.SourceStatic, grid: Grid,
         tallies=tallies, events=events, bingo=budget.bingo,
         e_el_old=e_el_old, e_el_new=e_el_new, dT_max=dT_max,
         fp_substeps=fp_sub, fp_incomplete=fp_inc, n_tracked=n_tracked,
-        nph_raw=nph_raw, nph_fit=nph_raw,
+        nph_raw=nph_raw, nph_fit=nph_fit,
     )
     return new_state, out

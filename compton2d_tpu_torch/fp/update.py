@@ -3,14 +3,15 @@ the Fokker-Planck solve of update2d.f vectorized over all zones.
 
 IC drift from the tallied radiation field (one float32 matmul against
 F_IC), synchrotron drift with the Razin-like suppression, hard-sphere
-stochastic acceleration, injection and escape; masked implicit substeps
-(Chang-Cooper + PCR) with the geometric x1.25 floor backoff for stiff
-zones, in a bounded loop whose condition is read on the host; the
+stochastic acceleration, injection and escape; under pair_switch the pair
+sources and annihilation sinks on the electrons and the positrons, whose
+distribution goes through the same Chang-Cooper operator; masked implicit
+substeps (Chang-Cooper + PCR) with the geometric x1.25 floor backoff for
+stiff zones, in a bounded loop whose condition is read on the host; the
 temperature from <gamma> through the gamma_bar table; the dT_max -> dt
 ladder and the effective nonthermal refit.
 
-Not ported: the pair source/sink terms (pair_switch) and the Coulomb
-drift (fp_include_coulomb); both raise.
+Not ported: the Coulomb drift (fp_include_coulomb); it raises.
 """
 from __future__ import annotations
 
@@ -41,11 +42,12 @@ class FPResult(NamedTuple):
 def fp_step(
     zones: ZoneState, n_field, tables: Tables, vol, z_max: float, dz, dt,
     time, eloss_sy, phys: PhysicsConfig, scales: Scales,
-    eloss_br=None,
+    eloss_br=None, dn_pp=None, dne_pa=None, dnp_pa=None,
 ) -> FPResult:
-    """All energies scaled by scales.E, volumes by scales.L^3."""
-    if phys.pair_switch:
-        raise NotImplementedError("fp_step: pair_switch is not ported yet")
+    """All energies scaled by scales.E, volumes by scales.L^3. Under
+    pair_switch, ``dn_pp`` (pair production), ``dne_pa`` and ``dnp_pa``
+    (electron and positron annihilation), each (nz, nr, num_nt) in
+    cm^-3 s^-1, act on the electrons and the positrons."""
     if phys.fp_include_coulomb:
         raise NotImplementedError(
             "fp_step: fp_include_coulomb is not ported yet")
@@ -103,6 +105,18 @@ def fp_step(
     lnL = phys.lnL
     inj = phys.injection
     jrow_flat = torch.arange(nz, dtype=f32, device=dev).repeat_interleave(nr)
+    use_pairs = bool(phys.pair_switch) and dn_pp is not None
+    if use_pairs:
+        # the pair terms act on the interior bins only: the end bins are
+        # the solve's boundary rows (x = d there, zeroed after the solve),
+        # and a source there would feed its neighbour through the drift
+        # coefficient unbounded (a fault of the reference; ROADMAP C)
+        interior = torch.ones(num_nt, dtype=f32, device=dev)
+        interior[0] = interior[-1] = 0.0
+        dn_pp_f = dn_pp.reshape(Z, num_nt).to(f32) * interior
+        dne_pa_f = dne_pa.reshape(Z, num_nt).to(f32) * interior
+        dnp_pa_f = dnp_pa.reshape(Z, num_nt).to(f32) * interior
+    npos = zones.n_pos.reshape(Z, num_nt).to(f32)
     slab_vol = torch.sum(volume) / nz
     eloss_sy_z = eloss_sy.reshape(Z).to(f32)
 
@@ -159,6 +173,14 @@ def fp_step(
         last = d_t >= dt32 - t_fp
         d_t = torch.where(last, dt32 - t_fp, d_t)
         d_t = torch.clamp_min(d_t, 1e-30)
+
+        # ---- pair sources/sinks (update2d.f:1185-1221) -------------------
+        if use_pairs:
+            dlt = d_t[:, None]
+            f = torch.clamp_min(
+                f + (dn_pp_f + dne_pa_f) * dlt
+                / torch.clamp_min(ne, 1e-30)[:, None], 0.0)
+            npos = torch.clamp_min(npos + (dn_pp_f + dnp_pa_f) * dlt, 0.0)
 
         # ---- injection (update2d.f:1229-1301) ---------------------------
         n_inject = torch.zeros(Z, dtype=f32, device=dev)
@@ -228,6 +250,12 @@ def fp_step(
         f_new = pcr_solve(a, b, c, f_inj)
         f_new[..., 0] = 0.0
         f_new[..., -1] = 0.0
+        if use_pairs:
+            # positrons through the same operator (trid_p, update2d.f:1399,
+            # 2524-2564)
+            npos_new = pcr_solve(a, b, c, npos)
+            npos_new[..., 0] = 0.0
+            npos_new[..., -1] = 0.0
         s = torch.clamp_min(
             torch.sum(f_new * wdg, dim=-1, keepdim=True), 1e-30)
         f_new = f_new / s
@@ -238,6 +266,8 @@ def fp_step(
 
         upd = ~done
         f = torch.where(upd[:, None], f_new, f)
+        if use_pairs:
+            npos = torch.where(upd[:, None], npos_new, npos)
         th_e = torch.where(upd, th_new, th_e)
         t_fp = torch.where(upd, torch.where(last, dt32, t_fp + d_t), t_fp)
         done = t_fp >= dt32
@@ -306,6 +336,15 @@ def fp_step(
         p_nth=p_eff.reshape(nz, nr),
         amxwl=torch.where(pure_th, 1.0, amxwl_eff).reshape(nz, nr),
     )
+    if use_pairs:
+        # positron census -> pair fraction (update2d.f:1215-1221)
+        n_positron = torch.sum(npos * wdg, dim=-1)
+        zones_new = zones_new._replace(
+            n_pos=npos.reshape(nz, nr, num_nt),
+            f_pair=torch.clamp_min(
+                n_positron / torch.clamp_min(np_fin, 1e-30), 0.0
+            ).reshape(nz, nr),
+        )
     return FPResult(
         zones=zones_new, dt_new=dt_new, dT_max=dT_max, e_el_old=e_el_old,
         e_el_new=e_el_new,

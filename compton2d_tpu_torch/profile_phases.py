@@ -5,15 +5,21 @@ time, then with every phase of the step wrapped in a timer that
 synchronises the card before and after it, for the breakdown (inclusive
 times: ``transport_step`` contains the flight kernel, ``_leak`` and
 ``apply_scatter``; ``apply_scatter`` contains its ``scatter_stratified``
-sampler calls). Prints one JSON object::
+sampler calls; ``pair_fields``, the pair physics of the census field,
+contains its ``hist2d``, ``nph_smooth``, ``dn_pp_from_field`` and
+``pa_rates``). Prints one JSON object::
 
   python -m compton2d_tpu_torch.profile_phases --config mrk421
   python -m compton2d_tpu_torch.profile_phases --config small_corona
+  python -m compton2d_tpu_torch.profile_phases --config pair_corona
 
 ``mrk421`` is the dense Mrk 421 run (10x4 zones, 131072 slots, nst
 200000, n_e 2e6, stratified splitting with gamma_c 3e4 and 64 copies)
 to t_stop; ``small_corona`` is the benchmark-size corona (8x4 zones,
-131072 slots, nst 60000) for 2 warm-up and ``--steps`` timed steps.
+131072 slots, nst 60000) and ``pair_corona`` the pair-producing corona of
+``tools/pallas_e2e.py`` (4x3 zones, 262144 slots, nst 200000, amxwl 0.5,
+gamma 3-20, pair_switch on), each for 2 warm-up and ``--steps`` timed
+steps.
 """
 from __future__ import annotations
 
@@ -27,6 +33,7 @@ import torch
 
 from compton2d_tpu_torch import driver, run_mrk421
 from compton2d_tpu_torch.examples import small_corona
+from compton2d_tpu_torch.physics import pairs
 from compton2d_tpu_torch.transport import flight, tracking
 
 # (module, attribute) of each timed phase, as the step looks them up
@@ -38,6 +45,8 @@ PHASES = (
     (tracking, "_leak"), (tracking, "apply_scatter"),
     (tracking, "scatter_stratified"), (tracking, "segment_sum"),
     (driver, "census_tally"), (driver, "fp_step"),
+    (driver, "pair_fields"), (driver, "hist2d"), (pairs, "nph_smooth"),
+    (pairs, "dn_pp_from_field"), (pairs, "pa_rates"),
 )
 
 
@@ -48,6 +57,11 @@ def make_sim(config: str, device):
              "--strat-gamma-c", "3e4", "--strat-copies", "64",
              "--device", str(device)])
         return run_mrk421.make_sim(args)
+    if config == "pair_corona":
+        return small_corona(nz=4, nr=3, nst=200000, n_slots=1 << 18,
+                            num_nt=100, n_vol=128, nphfield=128,
+                            t_const=False, pair_switch=1, amxwl=0.5,
+                            gmin=3.0, gmax=20.0, device=device)
     return small_corona(nz=8, nr=4, nst=60000, n_slots=1 << 17, num_nt=200,
                         n_vol=400, nphfield=400, t_const=False,
                         max_flight_iters=256, device=device)
@@ -77,7 +91,8 @@ def drive(sim, config: str, steps: int, warm: int, on_timed=None):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--config", choices=("mrk421", "small_corona"),
+    ap.add_argument("--config",
+                    choices=("mrk421", "small_corona", "pair_corona"),
                     default="mrk421")
     ap.add_argument("--steps", type=int, default=4)
     ap.add_argument("--warm", type=int, default=2)
@@ -123,6 +138,7 @@ def main(argv=None):
         "ms_per_step": 1e3 * wall / n,
         "histories_per_s": sum(int(o.n_tracked) for o in outs) / wall,
         "rounds_per_step": sum(int(o.tallies.trk_rounds) for o in outs) / n,
+        "fp_substeps_per_step": sum(int(o.fp_substeps) for o in outs) / n,
         "ms_per_step_wrapped": 1e3 * wall_w / len(outs_w),
         "phases_ms_per_step": {k: 1e3 * v[0] / len(outs_w)
                                for k, v in acc.items()},

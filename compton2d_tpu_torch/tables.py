@@ -16,7 +16,7 @@ import torch
 
 from compton2d_tpu_torch import constants as cn
 from compton2d_tpu_torch.config import GridConfig
-from compton2d_tpu_torch.physics import icloss, reflection
+from compton2d_tpu_torch.physics import icloss, pairs, reflection
 from compton2d_tpu_torch.physics import compton
 from compton2d_tpu_torch.physics.electron_dist import GammaBarTable, gnt_grid
 from compton2d_tpu_torch.physics.emissivity import SyncKernelTable
@@ -66,6 +66,29 @@ def e_gg_grid(n: int = cn.N_GG) -> np.ndarray:
     """Log grid: factor 100 from 50 keV (setup2d.f:199-209)."""
     de = np.exp(np.log(cn.EGG_SPAN) / n)
     return cn.EGG_MIN_KEV * de ** np.arange(n)
+
+
+class PairTables(NamedTuple):
+    """Static pair-physics kernels (built only when pair_switch is on;
+    see ``physics.pairs``)."""
+
+    kgg_mat: torch.Tensor    # (n_gg, n_gg) opacity matrix [cm^3 keV / L]
+    pp_tensor: torch.Tensor  # (num_nt, n_gg, n_gg) pair-production kernel
+    vsigma: torch.Tensor     # (num_nt, num_nt) annihilation <sigma v>
+
+
+def build_pair_tables(grid_cfg: GridConfig, length_scale: float = 1.0,
+                      device="cpu") -> PairTables:
+    def t(a):
+        return torch.as_tensor(np.asarray(a, np.float32), device=device)
+
+    e_gg = e_gg_grid(grid_cfg.n_gg)
+    gnt = gnt_grid(grid_cfg.num_nt)
+    return PairTables(
+        kgg_mat=t(pairs.kgg_matrix(e_gg, length_scale)),
+        pp_tensor=t(pairs.pairprod_tensor(gnt, e_gg)),
+        vsigma=t(pairs.vsigma_matrix(gnt)),
+    )
 
 
 def build_tables(grid_cfg: GridConfig, length_scale: float = 1.0,

@@ -1,15 +1,17 @@
 """Whole-step photon flight with the Compton scatter sampler inlined.
 
 The counterpart of ``compton2d_tpu.transport.flight_pallas2`` in its
-resident-table, ``pair_switch=False`` modes: with the scatter sampler
-inlined (``inline_scatter=True``), or with collisions frozen as
-FLAG_SCATTER for the stratified sampler outside (``inline_scatter=False``,
-the mode of ``SourceConfig.strat_split``). Three pieces:
+resident-table modes: with the scatter sampler inlined
+(``inline_scatter=True``), or with collisions frozen as FLAG_SCATTER for
+the stratified sampler outside (``inline_scatter=False``, the mode of
+``SourceConfig.strat_split``); either one with or without the gamma-gamma
+absorption of ``pair_switch``. Three pieces:
 
 - :func:`build_flight_tables` — the per-step zone tables in their natural
   layout (the counterpart of ``build_kernel_tables``): sigma/kappa rows,
-  the electron CDF, the 512-cell guide ``guide[z, j] = #(cdf[z] <
-  u_edge[j])`` and the bin-midpoint gamma-1;
+  the gamma-gamma opacity rows on the e_gg grid, the electron CDF, the
+  512-cell guide ``guide[z, j] = #(cdf[z] < u_edge[j])`` and the
+  bin-midpoint gamma-1;
 - :func:`flight_step` — the wrapper of the hand-written CUDA kernel
   ``csrc/flight.cu``. On a CUDA tensor it launches the kernel or raises;
   only for CPU tensors does it run the plain version;
@@ -30,7 +32,7 @@ import subprocess
 import tempfile
 import time
 from pathlib import Path
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -54,10 +56,12 @@ _INV_LN2 = 1.4426950408889634
 _M32 = 0xFFFFFFFF
 
 # kernel launches made by flight_step on CUDA tensors, in the inline
-# scatter mode and in the strat (FLAG_SCATTER) mode; the plain version on
-# CPU tensors does not count
+# scatter mode and in the strat (FLAG_SCATTER) mode, and of those the
+# launches with pair_switch on; the plain version on CPU tensors does not
+# count
 LAUNCHES = 0
 STRAT_LAUNCHES = 0
+PAIR_LAUNCHES = 0
 
 _SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "flight.cu"
 _BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
@@ -73,6 +77,7 @@ class FlightTables(NamedTuple):
 
     sig: torch.Tensor        # (nzr, n_vol) scattering opacity [1/L]
     kap: torch.Tensor        # (nzr, n_vol) absorption opacity [1/L]
+    kgg: torch.Tensor        # (nzr, n_gg) gamma-gamma opacity [1/L]
     cdf: torch.Tensor        # (nzr, num_nt) electron CDF
     guide: torch.Tensor      # (nzr, GUIDE_G) int32 lo-counts
     gm1: torch.Tensor        # (num_nt - 1,) bin-midpoint gamma-1
@@ -80,6 +85,9 @@ class FlightTables(NamedTuple):
     z_edges: torch.Tensor    # (nz + 1,)
     e_ph_log0: float         # f32 value of log(e_ph[0])
     e_ph_dlog: float         # f32 value of log(e_ph[1] / e_ph[0])
+    e_gg_log0: float         # f32 value of log(e_gg[0])
+    e_gg_dlog: float         # f32 value of log(e_gg[1] / e_gg[0])
+    e_gg0: float             # exp(e_gg_log0) in f32: the grid's first point
 
 
 class FlightResult(NamedTuple):
@@ -140,9 +148,18 @@ def build_flight_tables(
     z_edges: torch.Tensor,
     e_ph_log0: float,
     e_ph_dlog: float,
+    kgg_zone: Optional[torch.Tensor] = None,   # (nzr, n_gg)
+    e_gg_log0: float = 0.0,
+    e_gg_dlog: float = 1.0,
 ) -> FlightTables:
+    """Without ``kgg_zone`` the gamma-gamma table is zero (two bins); the
+    kernel reads it only under ``pair_switch``."""
     f32 = torch.float32
     dev = opac_zone.device
+    if kgg_zone is None:
+        kgg_zone = torch.zeros((opac_zone.shape[0], 2), dtype=f32,
+                               device=dev)
+    log0_32 = torch.tensor(float(e_gg_log0), dtype=f32)
     cdf = cdf_nt.to(f32).contiguous()
     u_edges = torch.as_tensor(guide_u_edges(), device=dev)
     # exact compare-count (the CDF need not be bitwise monotone)
@@ -153,6 +170,7 @@ def build_flight_tables(
     return FlightTables(
         sig=opac_zone[:, :, 0].to(f32).contiguous(),
         kap=opac_zone[:, :, 1].to(f32).contiguous(),
+        kgg=kgg_zone.to(f32).contiguous(),
         cdf=cdf,
         guide=guide.contiguous(),
         gm1=torch.sqrt(gnt32[1:] * gnt32[:-1]).contiguous(),
@@ -160,6 +178,9 @@ def build_flight_tables(
         z_edges=z_edges.to(f32).contiguous(),
         e_ph_log0=float(np.float32(e_ph_log0)),
         e_ph_dlog=float(np.float32(e_ph_dlog)),
+        e_gg_log0=float(log0_32),
+        e_gg_dlog=float(np.float32(float(e_gg_dlog))),
+        e_gg0=float(torch.exp(log0_32)),
     )
 
 
@@ -194,7 +215,7 @@ def flight_step_reference(
     e, w, w0, r, z, mu, cphi, sphi, dcen, jz, kr, alive,
     tables: FlightTables, seeds, *, nz: int, nr: int,
     weight_floor: float, max_iters: int, max_tries: int,
-    inline_scatter: bool = True,
+    inline_scatter: bool = True, pair_switch: bool = False,
 ) -> FlightResult:
     """The kernel's lock-step loop over all lanes, in PyTorch."""
     n = e.shape[0]
@@ -202,11 +223,13 @@ def flight_step_reference(
     f32, i32 = torch.float32, torch.int32
     nzr = nz * nr
     n_vol = tables.sig.shape[1]
+    n_gg = tables.kgg.shape[1]
     num_nt = tables.cdf.shape[1]
     slot = torch.arange(n, device=dev, dtype=torch.int64)
     lane_mix = ((slot % TILE) * 2246822519) & _M32
     seed_u = (seeds.to(torch.int64) & _M32)[slot // TILE]
     x_hi = float(np.float32(n_vol - 1.000001))
+    x_gg_hi = float(np.float32(n_gg - 1.000001))
     wf = float(np.float32(weight_floor))
     c_light = float(np.float32(2.9979245620e10))
     pi32 = float(np.float32(np.pi))
@@ -244,8 +267,8 @@ def flight_step_reference(
         zid = torch.clamp(jz * nr + kr, 0, nzr - 1).long()
 
         # ---- opacity lookup --------------------------------------------
-        x_ph = (torch.log(torch.clamp_min(e, 1e-30)) - tables.e_ph_log0) \
-            / tables.e_ph_dlog
+        log_e = torch.log(torch.clamp_min(e, 1e-30))
+        x_ph = (log_e - tables.e_ph_log0) / tables.e_ph_dlog
         x_ph = torch.clamp(x_ph, 0.0, x_hi)
         i_ph = torch.floor(x_ph).to(i32)
         f_ph = x_ph - i_ph.to(f32)
@@ -256,6 +279,17 @@ def flight_step_reference(
             1e-30,
         )
         kap = tables.kap[zid, i0] * (1.0 - f_ph) + tables.kap[zid, i1] * f_ph
+        if pair_switch:
+            # gamma-gamma opacity on the e_gg grid, scaled down below it
+            x_gg = torch.clamp((log_e - tables.e_gg_log0) / tables.e_gg_dlog,
+                               0.0, x_gg_hi)
+            i_gg = torch.floor(x_gg).to(i32)
+            f_gg = x_gg - i_gg.to(f32)
+            g0 = torch.clamp(i_gg, 0, n_gg - 1).long()
+            g1 = torch.clamp(i_gg + 1, max=n_gg - 1).long()
+            kgg = (tables.kgg[zid, g0] * (1.0 - f_gg)
+                   + tables.kgg[zid, g1] * f_gg)
+            kgg = where(e > tables.e_gg0, kgg, kgg * e / tables.e_gg0)
 
         # ---- flight: tau draw + geometry + event select ----------------
         u_tau = 1e-12 + rnd(0) * (1.0 - 1e-12)
@@ -299,12 +333,17 @@ def flight_step_reference(
         ikind = where(hit_bnd, 1, ikind)
 
         # ---- continuous absorption --------------------------------------
-        sigabs = torch.clamp_min(kap + 0.0, 1e-30)
+        sigabs = torch.clamp_min(kap + kgg if pair_switch else kap, 1e-30)
         xabs = sigabs * trld
         ewnew = where(xabs < 100.0, w * torch.exp(-xabs), 0.0)
         deleabs = torch.clamp_min(w - ewnew, 0.0)
-        edep_add = where(fly, deleabs, 0.0)
-        epair = epair + where(fly, deleabs * 0.0, 0.0)
+        if pair_switch:
+            # above 47 keV the gamma-gamma share becomes pairs, not heat
+            frac_heat = where(e > 47.0, kap / sigabs, 1.0)
+            edep_add = where(fly, deleabs * frac_heat, 0.0)
+            epair = epair + where(fly, deleabs * (1.0 - frac_heat), 0.0)
+        else:
+            edep_add = where(fly, deleabs, 0.0)
         u_s = 1e-7 + rnd(1) * (1.0 - 1e-7)
         tiny_abs = xabs <= 1e-5
         frac = torch.clamp((1.0 - torch.exp(-xabs)) * u_s, 0.0, 0.999999)
@@ -530,8 +569,8 @@ def build() -> float:
         lib = ctypes.CDLL(str(path))
         lib.flight_launch.argtypes = (
             [ctypes.c_void_p, ctypes.c_int]
-            + [ctypes.c_int] * 8
-            + [ctypes.c_float] * 4
+            + [ctypes.c_int] * 10
+            + [ctypes.c_float] * 8
             + [ctypes.c_void_p]
         )
         lib.flight_launch.restype = ctypes.c_int
@@ -556,15 +595,15 @@ def flight_step(
     e, w, w0, r, z, mu, cphi, sphi, dcen, jz, kr, alive,
     tables: FlightTables, seeds, *, nz: int, nr: int,
     weight_floor: float, max_iters: int, max_tries: int,
-    inline_scatter: bool = True,
+    inline_scatter: bool = True, pair_switch: bool = False,
 ) -> FlightResult:
     """One kernel entry over all photon slots. CPU tensors run
     :func:`flight_step_reference`; CUDA tensors launch ``csrc/flight.cu``
     (built at first use) or raise."""
-    global LAUNCHES, STRAT_LAUNCHES
+    global LAUNCHES, STRAT_LAUNCHES, PAIR_LAUNCHES
     kw = dict(nz=nz, nr=nr, weight_floor=weight_floor,
               max_iters=max_iters, max_tries=max_tries,
-              inline_scatter=inline_scatter)
+              inline_scatter=inline_scatter, pair_switch=pair_switch)
     if e.device.type == "cpu":
         return flight_step_reference(
             e, w, w0, r, z, mu, cphi, sphi, dcen, jz, kr, alive,
@@ -575,12 +614,13 @@ def flight_step(
     n = e.shape[0]
     nzr = nz * nr
     n_vol = tables.sig.shape[1]
+    n_gg = tables.kgg.shape[1]
     num_nt = tables.cdf.shape[1]
     if n % TILE:
         raise ValueError(f"n_slots={n} must be a multiple of {TILE}")
     if nzr > MAX_ZONES:
         raise ValueError(f"nz*nr={nzr} exceeds the kernel's {MAX_ZONES}")
-    if num_nt < 2 or n_vol < 2:
+    if num_nt < 2 or n_vol < 2 or n_gg < 2:
         raise ValueError("tables need at least 2 energy and gamma bins")
     dev = e.device
     f32, i32 = torch.float32, torch.int32
@@ -594,6 +634,7 @@ def flight_step(
     _check(seeds, "seeds", i32, (n // TILE,), dev)
     _check(tables.sig, "sig", f32, (nzr, n_vol), dev)
     _check(tables.kap, "kap", f32, (nzr, n_vol), dev)
+    _check(tables.kgg, "kgg", f32, (nzr, n_gg), dev)
     _check(tables.cdf, "cdf", f32, (nzr, num_nt), dev)
     _check(tables.guide, "guide", i32, (nzr, GUIDE_G), dev)
     _check(tables.gm1, "gm1", f32, (num_nt - 1,), dev)
@@ -621,15 +662,17 @@ def flight_step(
     )
     ptrs = [t.data_ptr() for t in (
         e, w, w0, r, z, mu, cphi, sphi, dcen, jz, kr, alive_i, seeds,
-        tables.sig, tables.kap, tables.cdf, tables.guide, tables.gm1,
-        tables.r_edges, tables.z_edges,
+        tables.sig, tables.kap, tables.kgg, tables.cdf, tables.guide,
+        tables.gm1, tables.r_edges, tables.z_edges,
     )] + [t.data_ptr() for t in outs.values()]
     arr = (ctypes.c_uint64 * len(ptrs))(*ptrs)
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = _lib.flight_launch(
-        arr, len(ptrs), n, nz, nr, n_vol, num_nt, int(max_iters),
-        int(max_tries), int(bool(inline_scatter)), tables.e_ph_log0,
-        tables.e_ph_dlog, float(np.float32(n_vol - 1.000001)),
+        arr, len(ptrs), n, nz, nr, n_vol, n_gg, num_nt, int(max_iters),
+        int(max_tries), int(bool(inline_scatter)), int(bool(pair_switch)),
+        tables.e_ph_log0, tables.e_ph_dlog,
+        float(np.float32(n_vol - 1.000001)), tables.e_gg_log0,
+        tables.e_gg_dlog, float(np.float32(n_gg - 1.000001)), tables.e_gg0,
         float(np.float32(weight_floor)), stream,
     )
     if rc != 0:
@@ -638,6 +681,8 @@ def flight_step(
         LAUNCHES += 1
     else:
         STRAT_LAUNCHES += 1
+    if pair_switch:
+        PAIR_LAUNCHES += 1
     o = outs
     return FlightResult(
         e=o["e"], w=o["w"], r=o["r"], z=o["z"], mu=o["mu"],

@@ -44,6 +44,8 @@ class TrackStatics:
     weight_floor: float = 1.0e-10
     upper_escape_mu_cut: float = 0.98   # imcleak2d.f:303 event filter
     spec_switch: int = 0                # imcleak2d.f:53-58
+    # gamma-gamma absorption in the flight kernel (PhysicsConfig.pair_switch)
+    pair_switch: bool = False
     # stratified tail splitting (SourceConfig.strat_split): collisions
     # leave the kernel and apply_scatter splits the tail above gnt index
     # strat_icut into strat_copies copies
@@ -55,9 +57,8 @@ class TrackStatics:
 
 
 class TrackContext(NamedTuple):
-    """Per-step inputs for the tracker (fields as in the reference; the
-    reflection and pair fields of the reference are not needed with
-    cr_sent=0 and pair_switch off)."""
+    """Per-step inputs for the tracker (fields as in the reference; its
+    reflection fields are not needed with cr_sent=0)."""
 
     r_edges: torch.Tensor     # (nr+1,) f32
     z_edges: torch.Tensor     # (nz+1,) f32
@@ -81,6 +82,9 @@ class TrackContext(NamedTuple):
     # (nz*nr,) 1/(n_eff sigma_T L F_tot), the stratified-scatter
     # normalizer; needed only under strat_split
     inv_nsigt: Optional[torch.Tensor] = None
+    # (nz*nr, n_gg) gamma-gamma opacity [1/L] on the e_gg grid; read only
+    # under pair_switch
+    kgg_zone: Optional[torch.Tensor] = None
 
 
 # draw(first_stream, n_streams, idx) -> uniforms of n_streams weighted
@@ -194,7 +198,8 @@ def transport_step(
     inline = not st.strat_split
     ftab = flight.build_flight_tables(
         ctx.opac_zone, ctx.cdf_nt, ctx.gnt, ctx.r_edges, ctx.z_edges,
-        ctx.e_ph_log0, ctx.e_ph_dlog,
+        ctx.e_ph_log0, ctx.e_ph_dlog, kgg_zone=ctx.kgg_zone,
+        e_gg_log0=ctx.e_gg_log0, e_gg_dlog=ctx.e_gg_dlog,
     )
     ph, tl, ev = photons, tallies, events
     rnd, it_tot = 0, 0
@@ -207,6 +212,7 @@ def transport_step(
             nz=st.nz, nr=st.nr, weight_floor=float(st.weight_floor),
             max_iters=int(st.max_iters),
             max_tries=int(st.max_scatter_tries), inline_scatter=inline,
+            pair_switch=bool(st.pair_switch),
         )
         ph = ph._replace(
             e=res.e, w=res.w, r=res.r, z=res.z, mu=res.mu, cphi=res.cphi,

@@ -1,5 +1,5 @@
-"""The flight kernel, in its inline-scatter and strat modes, against its
-plain PyTorch version on a CUDA card.
+"""The flight kernel, in its inline-scatter and strat modes, with and
+without pair_switch, against its plain PyTorch version on a CUDA card.
 
 These tests need the card and skip without one. They import neither jax
 nor the JAX package, so they also run on a machine without jax:
@@ -11,13 +11,13 @@ import pytest
 import torch
 
 from compton2d_tpu_torch.physics.electron_dist import gnt_grid
-from compton2d_tpu_torch.tables import e_field_grid
+from compton2d_tpu_torch.tables import e_field_grid, e_gg_grid
 from compton2d_tpu_torch.transport import flight
 
 torch.set_num_threads(2)
 pytestmark = pytest.mark.cuda
 
-NZ, NR, N, N_VOL, NUM_NT = 4, 3, 4 * flight.TILE, 64, 50
+NZ, NR, N, N_VOL, NUM_NT, N_GG = 4, 3, 4 * flight.TILE, 64, 50, 32
 FIELDS = ("e", "w", "w0", "r", "z", "mu", "cphi", "sphi", "dcen", "jz",
           "kr", "alive")
 INTS = ("jz", "kr", "alive", "mode", "flag", "jn", "kn", "sct_cnt")
@@ -31,7 +31,7 @@ def card():
     return torch.device("cuda")
 
 
-def _inputs(dev, seed=0):
+def _inputs(dev, seed=0, pairs=False):
     rng = np.random.default_rng(seed)
     nzr = NZ * NR
     e_ph = e_field_grid(N_VOL).astype(np.float32)
@@ -46,14 +46,20 @@ def _inputs(dev, seed=0):
     def t(a, dtype=torch.float32):
         return torch.as_tensor(np.asarray(a), device=dev).to(dtype)
 
+    e_gg = e_gg_grid(N_GG).astype(np.float32)
+    kgg = rng.uniform(0.5, 3.0, (nzr, 1)) * np.linspace(0.1, 1.0, N_GG)
     tables = flight.build_flight_tables(
         t(opac), t(cdf), t(gnt), t(np.linspace(0, 1, NR + 1)),
         t(np.linspace(0, 1, NZ + 1)), float(np.log(e_ph[0])),
-        float(np.log(e_ph[1] / e_ph[0])))
+        float(np.log(e_ph[1] / e_ph[0])), kgg_zone=t(kgg),
+        e_gg_log0=float(np.log(e_gg[0])),
+        e_gg_dlog=float(np.log(e_gg[1] / e_gg[0])))
     jz, kr = rng.integers(0, NZ, N), rng.integers(0, NR, N)
+    # pairs: 10 keV to 10 MeV, across the e_gg grid and 47 keV
+    log_e = rng.uniform(1, 4, N) if pairs else rng.uniform(-2, 2, N)
     phi = rng.uniform(0, 2 * np.pi, N)
     ph = dict(
-        e=t(10.0 ** rng.uniform(-2, 2, N)), w=t(np.ones(N)),
+        e=t(10.0 ** log_e), w=t(np.ones(N)),
         w0=t(np.ones(N)), r=t((kr + rng.uniform(0.01, 0.99, N)) / NR),
         z=t((jz + rng.uniform(0.01, 0.99, N)) / NZ),
         mu=t(rng.uniform(-1, 1, N)), cphi=t(np.cos(phi)),
@@ -64,9 +70,10 @@ def _inputs(dev, seed=0):
     return [ph[k] for k in FIELDS], tables, seeds
 
 
-def _run(fn, args, tables, seeds, max_iters, inline=True):
+def _run(fn, args, tables, seeds, max_iters, inline=True, pairs=False):
     return fn(*args, tables, seeds, nz=NZ, nr=NR, weight_floor=1e-10,
-              max_iters=max_iters, max_tries=64, inline_scatter=inline)
+              max_iters=max_iters, max_tries=64, inline_scatter=inline,
+              pair_switch=pairs)
 
 
 def test_kernel_one_iteration_lane_for_lane(card):
@@ -128,5 +135,37 @@ def test_strat_mode_lane_for_lane_and_repeatable(card):
     assert float((k.flag[frozen] == flight.FLAG_SCATTER).float().mean()) \
         >= 0.99
     k2 = _run(flight.flight_step, args, tables, seeds, 64, inline=False)
+    for a, b in zip(k, k2):
+        assert torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b
+
+
+@pytest.mark.parametrize("inline", [True, False])
+def test_pair_mode_lane_for_lane_and_repeatable(card, inline):
+    """pair_switch=True in both scatter modes: one iteration integers
+    exact and floats rtol 1e-5; 64 iterations >= 99% identical lanes and
+    epair within 1e-3 of the input energy; two launches bitwise equal; the
+    pair-mode launch count rises with every launch."""
+    args, tables, seeds = _inputs(card, seed=3, pairs=True)
+    before = flight.PAIR_LAUNCHES
+    k = _run(flight.flight_step, args, tables, seeds, 1, inline, True)
+    assert flight.PAIR_LAUNCHES == before + 1
+    p = _run(flight.flight_step_reference, args, tables, seeds, 1, inline,
+             True)
+    for name in INTS:
+        assert torch.equal(getattr(k, name).long(),
+                           getattr(p, name).long()), name
+    for name in FLOATS:
+        torch.testing.assert_close(getattr(k, name), getattr(p, name),
+                                   rtol=1e-5, atol=1e-6)
+    k = _run(flight.flight_step, args, tables, seeds, 64, inline, True)
+    p = _run(flight.flight_step_reference, args, tables, seeds, 64, inline,
+             True)
+    same = torch.ones(N, dtype=torch.bool, device=card)
+    for name in INTS:
+        same &= getattr(k, name).long() == getattr(p, name).long()
+    assert float(same.float().mean()) >= 0.99
+    assert float(p.epair) > 0.01 * N
+    torch.testing.assert_close(k.epair, p.epair, rtol=1e-3, atol=1e-3 * N)
+    k2 = _run(flight.flight_step, args, tables, seeds, 64, inline, True)
     for a, b in zip(k, k2):
         assert torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b

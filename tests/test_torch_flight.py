@@ -1,9 +1,10 @@
 """The port's flight kernel wrapper and plain version against the JAX
 Pallas kernel ``flight_step_v2`` run in interpret mode, at the shapes of
-``tests/test_flight_pallas2.py``, in both kernel modes: the scatter
-inlined, and the strat mode where collisions freeze with FLAG_SCATTER.
-Both draw their random numbers from the same counter hash, so they agree
-lane for lane."""
+``tests/test_flight_pallas2.py``, in both kernel modes (the scatter
+inlined, and the strat mode where collisions freeze with FLAG_SCATTER),
+with and without the gamma-gamma absorption of ``pair_switch``. Both draw
+their random numbers from the same counter hash, so they agree lane for
+lane."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -16,6 +17,7 @@ from compton2d_tpu_torch.transport import flight
 torch.set_num_threads(2)
 
 NZ, NR = 3, 2
+E_GG0, E_GG_DLOG, N_GG = 50.0, 0.1, 32   # the kgg grid of these tests
 
 
 def _inputs(nz=NZ, nr=NR, n=2 * fp2.TILE, n_vol=48, num_nt=40, sig=1.0,
@@ -49,6 +51,7 @@ def _inputs(nz=NZ, nr=NR, n=2 * fp2.TILE, n_vol=48, num_nt=40, sig=1.0,
     seeds = rng.integers(-2**31, 2**31, n // fp2.TILE).astype(np.int32)
     tab = dict(
         opac=opac, cdf=cdf.astype(np.float32), gnt=gnt,
+        kgg=np.zeros((nzr, N_GG), np.float32),
         r_edges=np.linspace(0, 1.0, nr + 1), z_edges=np.linspace(0, 1.0,
                                                                  nz + 1),
         log0=float(np.log(e_ph[0])), dlog=float(np.log(e_ph[1] / e_ph[0])),
@@ -56,20 +59,20 @@ def _inputs(nz=NZ, nr=NR, n=2 * fp2.TILE, n_vol=48, num_nt=40, sig=1.0,
     return ph, tab, seeds
 
 
-def _run_jax(ph, tab, seeds, max_iters, nz=NZ, nr=NR, inline=True):
-    nzr = nz * nr
+def _run_jax(ph, tab, seeds, max_iters, nz=NZ, nr=NR, inline=True,
+             pairs=False):
     ktab, dims = fp2.build_kernel_tables(
-        jnp.asarray(tab["opac"]), jnp.zeros((nzr, 32), jnp.float32),
+        jnp.asarray(tab["opac"]), jnp.asarray(tab["kgg"]),
         jnp.asarray(tab["cdf"]), jnp.asarray(tab["gnt"]),
         jnp.asarray(tab["r_edges"]), jnp.asarray(tab["z_edges"]),
-        tab["log0"], tab["dlog"], float(np.log(50.0)), 0.1,
+        tab["log0"], tab["dlog"], float(np.log(E_GG0)), E_GG_DLOG,
     )
     out = fp2.flight_step_v2(
         *(jnp.asarray(ph[k]) for k in (
             "e", "w", "w0", "r", "z", "mu", "cphi", "sphi", "dcen", "jz",
             "kr", "alive")),
         ktab, jnp.asarray(seeds), dims=dims, nz=nz, nr=nr,
-        pair_switch=False, inline_scatter=inline, weight_floor=1e-10,
+        pair_switch=pairs, inline_scatter=inline, weight_floor=1e-10,
         max_iters=max_iters, max_tries=64, interpret=True,
     )
     return [np.asarray(o) for o in out], ktab, dims
@@ -81,18 +84,20 @@ def _tables_torch(tab):
         t(tab["opac"]), t(tab["cdf"]), t(tab["gnt"]),
         t(tab["r_edges"].astype(np.float32)),
         t(tab["z_edges"].astype(np.float32)), tab["log0"], tab["dlog"],
+        kgg_zone=t(tab["kgg"]), e_gg_log0=float(np.log(E_GG0)),
+        e_gg_dlog=E_GG_DLOG,
     )
 
 
 def _run_torch(ph, tab, seeds, max_iters, nz=NZ, nr=NR, fn=None,
-               inline=True):
+               inline=True, pairs=False):
     fn = fn or flight.flight_step_reference
     args = [torch.as_tensor(ph[k]) for k in (
         "e", "w", "w0", "r", "z", "mu", "cphi", "sphi", "dcen", "jz", "kr",
         "alive")]
     return fn(*args, _tables_torch(tab), torch.as_tensor(seeds), nz=nz,
               nr=nr, weight_floor=1e-10, max_iters=max_iters, max_tries=64,
-              inline_scatter=inline)
+              inline_scatter=inline, pair_switch=pairs)
 
 
 # flight_step_v2 output positions of the FlightResult fields
@@ -171,6 +176,74 @@ def test_many_iterations_agree_with_pallas_interpret(inline):
     if inline:
         np.testing.assert_array_equal(res.iglog.numpy()[same], jo[21][same])
     _assert_sums(res, jo, 1e-3, float(ph["w"].sum()))
+
+
+def _pair_inputs(seed, **kw):
+    """Photons from 10 keV to 3 MeV (below the e_gg grid, on it, above 47
+    keV and above the grid) and a kgg table of order 1 per unit length,
+    rising with energy and different in every zone."""
+    ph, tab, seeds = _inputs(seed=seed, **kw)
+    rng = np.random.default_rng(seed + 100)
+    n = ph["e"].shape[0]
+    ph["e"] = (10.0 ** rng.uniform(1.0, 3.5, n)).astype(np.float32)
+    nzr = tab["opac"].shape[0]
+    tab["kgg"] = (rng.uniform(0.2, 2.0, (nzr, 1))
+                  * np.linspace(0.1, 1.0, N_GG)[None, :]).astype(np.float32)
+    return ph, tab, seeds
+
+
+@pytest.mark.parametrize("inline", [True, False])
+def test_pair_mode_matches_pallas_interpret(inline):
+    """pair_switch=True against flight_step_v2(pair_switch=True,
+    interpret=True): one iteration lane for lane (integers exact, floats
+    rtol 1e-5, tallies, epair and the other sums to 1e-5 of their scale),
+    then 64 iterations with >= 99% identical lanes and sums to 1e-3. The
+    gamma-gamma channel carries energy in both."""
+    ph, tab, seeds = _pair_inputs(5, sig=2.0, kap=0.05, dcen=1.0)
+    e_scale = float(ph["w"].sum())
+    jo, _, _ = _run_jax(ph, tab, seeds, 1, inline=inline, pairs=True)
+    res = _run_torch(ph, tab, seeds, 1, inline=inline, pairs=True)
+    for name, pos in _INT_POS.items():
+        np.testing.assert_array_equal(
+            getattr(res, name).numpy().astype(np.int64),
+            jo[pos].astype(np.int64), err_msg=name)
+    for name, pos in _FLOAT_POS.items():
+        np.testing.assert_allclose(getattr(res, name).numpy(), jo[pos],
+                                   rtol=1e-5, atol=1e-6, err_msg=name)
+    assert float(jo[18]) > 0.01 * e_scale       # pairs took energy
+    _assert_sums(res, jo, 1e-5, e_scale)
+
+    jo, _, _ = _run_jax(ph, tab, seeds, 64, inline=inline, pairs=True)
+    res = _run_torch(ph, tab, seeds, 64, inline=inline, pairs=True)
+    same = np.ones(ph["e"].shape[0], bool)
+    for name, pos in _INT_POS.items():
+        same &= (getattr(res, name).numpy().astype(np.int64)
+                 == jo[pos].astype(np.int64))
+    assert same.mean() >= 0.99, same.mean()
+    _assert_sums(res, jo, 1e-3, e_scale)
+
+
+def test_gamma_gamma_absorption_channel():
+    """The port of test_v2_gamma_gamma_absorption_channel: a strong uniform
+    kgg attenuates 100 keV photons (above 47 keV, on the e_gg grid); the
+    absorbed energy goes to epair, not edep, and
+    sum(w) + edep + ekill + epair - 2 esct closes to 3e-4."""
+    nz, nr, n = 2, 2, fp2.TILE
+    ph, tab, seeds = _inputs(nz=nz, nr=nr, n=n, sig=1e-3, kap=0.0,
+                             dcen=1.0)
+    tab["opac"][:, :, 0] = 1e-3
+    tab["opac"][:, :, 1] = 0.0
+    tab["kgg"] = np.full((nz * nr, N_GG), 3.0, np.float32)
+    ph["e"][:] = 100.0
+    ph["alive"][:] = True
+    res = _run_torch(ph, tab, seeds, 64, nz=nz, nr=nr, pairs=True,
+                     fn=flight.flight_step)
+    w = float(res.w.sum())
+    assert w < 0.8 * n
+    assert float(res.epair) > 0.1 * n
+    total = (w + float(res.tally[0].sum()) + float(res.ekill)
+             + float(res.epair) - 2.0 * float(res.esct))
+    np.testing.assert_allclose(total, float(n), rtol=3e-4)
 
 
 def test_guide_equals_reference():

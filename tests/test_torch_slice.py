@@ -82,7 +82,8 @@ def test_same_seed_bitwise_repeatable():
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
-    """A fresh interpreter runs one step of the port; neither jax nor any
+    """A fresh interpreter runs one step of the port, and one with pair
+    physics on (which loads physics/pairs.py); neither jax nor any
     compton2d_tpu module is loaded. The reference's config / constants /
     units modules stay jax-free as well."""
     code = (
@@ -90,6 +91,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "from compton2d_tpu_torch.examples import small_corona\n"
         "small_corona(nz=2, nr=2, nst=300, n_slots=1024, num_nt=30, "
         "n_vol=32, nphfield=32, device='cpu').step()\n"
+        "small_corona(nz=2, nr=2, nst=300, n_slots=1024, num_nt=30, "
+        "n_vol=32, nphfield=32, pair_switch=1, device='cpu').step()\n"
+        "assert 'compton2d_tpu_torch.physics.pairs' in sys.modules\n"
         "assert 'jax' not in sys.modules\n"
         "assert not [m for m in sys.modules if m.split('.')[0] == "
         "'compton2d_tpu']\n"
@@ -112,7 +116,6 @@ def _window(nz, nr, tbb=0.5):
 
 
 @pytest.mark.parametrize("change", [
-    dict(physics=dict(pair_switch=1)),
     dict(physics=dict(cr_sent=1)),
     dict(physics=dict(cr_sent=2)),
     dict(mesh=True),

@@ -60,9 +60,9 @@ def from_reference(
     grid: Dict[str, np.ndarray], src: Dict[str, np.ndarray],
     device="cuda", seed: int = 0,
     pair_tables: Optional[Dict[str, np.ndarray]] = None,
-) -> Tuple:
-    """The port's (SimState, Tables, Grid, SourceStatic) from flattened
-    reference objects, and the port's PairTables after them when the
+) -> Tuple[SimState, Tables, Grid, SourceStatic, Optional[PairTables]]:
+    """The port's (SimState, Tables, Grid, SourceStatic, PairTables) from
+    flattened reference objects; the PairTables are None unless the
     reference's flattened ``pair_tables`` are given. The reference's
     threefry key has no counterpart: the port's ``state.key`` is a new
     generator seeded with ``seed``."""
@@ -82,12 +82,11 @@ def from_reference(
     sim_state = SimState(**kw)
     tab = _build(Tables, tables, "", dev, nested={
         "sync": SyncKernelTable, "gamma_bar": GammaBarTable})
-    out = (
+    return (
         sim_state,
         tab,
         _build(Grid, grid, "", dev),
         _build(SourceStatic, src, "", dev),
+        None if pair_tables is None
+        else _build(PairTables, pair_tables, "", dev),
     )
-    if pair_tables is not None:
-        out += (_build(PairTables, pair_tables, "", dev),)
-    return out

@@ -47,7 +47,8 @@ def fp_step(
     """All energies scaled by scales.E, volumes by scales.L^3. Under
     pair_switch, ``dn_pp`` (pair production), ``dne_pa`` and ``dnp_pa``
     (electron and positron annihilation), each (nz, nr, num_nt) in
-    cm^-3 s^-1, act on the electrons and the positrons."""
+    cm^-3 s^-1, act on the electrons and the positrons; all three are
+    required then."""
     if phys.fp_include_coulomb:
         raise NotImplementedError(
             "fp_step: fp_include_coulomb is not ported yet")
@@ -105,12 +106,16 @@ def fp_step(
     lnL = phys.lnL
     inj = phys.injection
     jrow_flat = torch.arange(nz, dtype=f32, device=dev).repeat_interleave(nr)
-    use_pairs = bool(phys.pair_switch) and dn_pp is not None
+    use_pairs = bool(phys.pair_switch)
     if use_pairs:
+        if dn_pp is None or dne_pa is None or dnp_pa is None:
+            raise ValueError(
+                "fp_step: pair_switch needs dn_pp, dne_pa and dnp_pa")
         # the pair terms act on the interior bins only: the end bins are
         # the solve's boundary rows (x = d there, zeroed after the solve),
-        # and a source there would feed its neighbour through the drift
-        # coefficient unbounded (a fault of the reference; ROADMAP C)
+        # so a source there flows into its neighbour in proportion to the
+        # drift coefficient without ever leaving the end bin, and creates
+        # particles (a fault of the reference; ROADMAP C)
         interior = torch.ones(num_nt, dtype=f32, device=dev)
         interior[0] = interior[-1] = 0.0
         dn_pp_f = dn_pp.reshape(Z, num_nt).to(f32) * interior

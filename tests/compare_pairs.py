@@ -1,6 +1,8 @@
 """Port against reference on the bounded-tail corona, on the CPU.
 
-A helper, not a test file. Three comparisons, each printed line by line:
+A helper, not a test file (tests/test_torch_pairs.py imports its
+``fp_args``, ``port_cc_limit`` and ``reference_fp``). Three comparisons,
+each printed line by line:
 
 ``te``
     pairs off, nst 400, 2048 slots: mean Te after each of 3 steps on the
@@ -11,16 +13,20 @@ A helper, not a test file. Three comparisons, each printed line by line:
     range, dn_pp, positron density and pair fraction of the reference
     (Pallas path) and of the port, over ``--seeds``;
 ``fp``
-    the port's FP inputs at step ``--step`` of that trajectory (seed 0)
-    through the reference's ``fp_step``, the same with the port's
-    Chang-Cooper limits below w = -500 patched in, and the port's
-    ``fp_step``: the pair fraction per zone of each.
+    the port's FP inputs at step ``--step`` of that trajectory (seed 0;
+    ``--size tiny``: the 2x2 pair corona of tests/test_torch_pairs.py)
+    through the reference's ``fp_step`` as it is, with the port's
+    Chang-Cooper limits below w = -500 patched in, with the pair terms of
+    the two end bins zeroed, and with both; and through the port's
+    ``fp_step``: the pair fraction and Te per zone of each, and each
+    one's largest difference from the port relative to the port's max.
 
 Run from the repository root::
 
     JAX_PLATFORMS=cpu python tests/compare_pairs.py te --seeds 0 1 2
     JAX_PLATFORMS=cpu python tests/compare_pairs.py trajectory --steps 6
     JAX_PLATFORMS=cpu python tests/compare_pairs.py fp --step 3
+    JAX_PLATFORMS=cpu python tests/compare_pairs.py fp --step 1 --size tiny
 """
 import argparse
 import dataclasses
@@ -38,6 +44,7 @@ TINY = dict(nz=2, nr=2, nst=400, n_slots=2048, num_nt=40, n_vol=32,
 MID = dict(nz=4, nr=3, nst=3000, n_slots=8192, num_nt=100, n_vol=128,
            nphfield=128, t_const=False, pair_switch=1, amxwl=0.5, gmin=3.0,
            gmax=20.0)
+SIZES = {"tiny": dict(TINY, pair_switch=1), "mid": MID}
 
 
 def _np(x):
@@ -109,58 +116,101 @@ def trajectory(seeds, steps):
               f"{_np(z.f_pair).max():.3e}", flush=True)
 
 
-def fp(step):
-    import jax.numpy as jnp
-
-    import compton2d_tpu.fp.chang_cooper as jcc
-    from compton2d_tpu import examples as jex
-    from compton2d_tpu.fp.update import fp_step as j_fp_step
-    from compton2d_tpu.state import ZoneState as JZones
+def fp_args(cfg, steps):
+    """The arguments (args, kwargs) of the port's fp_step at each of the
+    first ``steps`` steps of ``small_corona(**cfg)``, seed 0, on the CPU."""
     from compton2d_tpu_torch import driver
     from compton2d_tpu_torch import examples as pex
 
-    seen = {}
+    seen = []
     port_fp = driver.fp_step
 
     def keep(*a, **k):
-        seen["args"], seen["kw"] = a, k
+        seen.append((a, k))
         return port_fp(*a, **k)
 
     driver.fp_step = keep
-    sim = pex.small_corona(**MID, seed=0, device="cpu")
-    for _ in range(step + 1):
-        sim.step()
-    driver.fp_step = port_fp
-    a, k = seen["args"], seen["kw"]
-    zones, n_field, _, vol, z_max, dz, dt, time, eloss_sy = a[:9]
+    try:
+        sim = pex.small_corona(**cfg, seed=0, device="cpu")
+        for _ in range(steps):
+            sim.step()
+    finally:
+        driver.fp_step = port_fp
+    return seen
+
+
+def port_cc_limit(w):
+    """The port's w / (e^w - 1) (fp/chang_cooper.py) in jax, to patch
+    over the reference's ``_w_over_expm1``: its limit -w below w = -500,
+    where the reference keeps w = -500."""
+    import jax.numpy as jnp
+
+    wc = jnp.clip(w, -500.0, 500.0)
+    small = jnp.abs(wc) < 1e-8
+    safe = jnp.where(small, 1.0, wc)
+    out = jnp.where(small, 1.0 - 0.5 * wc, safe / jnp.expm1(safe))
+    return jnp.where(w < -500.0, -w, out)
+
+
+def reference_fp(jsim, args, kw, end_bins: bool = True):
+    """The reference's fp_step on the port's fp_step arguments, with the
+    reference's tables; without ``end_bins``, the pair terms of the two
+    end bins are zeroed first."""
+    import jax.numpy as jnp
+
+    from compton2d_tpu.fp.update import fp_step as j_fp_step
+    from compton2d_tpu.state import ZoneState as JZones
+
+    zones, n_field, _, vol, z_max, dz, dt, time, eloss_sy = args[:9]
 
     def J(t):
         return jnp.asarray(t.numpy())
 
-    jsim = jex.small_corona(**MID)
+    pair = {}
+    for name in ("dn_pp", "dne_pa", "dnp_pa"):
+        x = kw[name].numpy().copy()
+        if not end_bins:
+            x[..., 0] = x[..., -1] = 0.0
+        pair[name] = jnp.asarray(x)
     jz = JZones(**{f: J(getattr(zones, f)) for f in JZones._fields})
+    return j_fp_step(jz, J(n_field), jsim.tables, J(vol), z_max, J(dz),
+                     J(dt), J(time), J(eloss_sy), jsim.cfg.physics,
+                     jsim.scales, eloss_br=J(kw["eloss_br"]), **pair)
 
-    def ref():
-        return j_fp_step(jz, J(n_field), jsim.tables, J(vol), z_max, J(dz),
-                         J(dt), J(time), J(eloss_sy), jsim.cfg.physics,
-                         jsim.scales, dn_pp=J(k["dn_pp"]),
-                         dne_pa=J(k["dne_pa"]), dnp_pa=J(k["dnp_pa"]),
-                         eloss_br=J(k["eloss_br"])).zones.f_pair
 
-    def limits(w):
-        wc = jnp.clip(w, -500.0, 500.0)
-        small = jnp.abs(wc) < 1e-8
-        safe = jnp.where(small, 1.0, wc)
-        out = jnp.where(small, 1.0 - 0.5 * wc, safe / jnp.expm1(safe))
-        return jnp.where(w < -500.0, -w, out)
+def fp(step, size):
+    import compton2d_tpu.fp.chang_cooper as jcc
+    from compton2d_tpu import examples as jex
+    from compton2d_tpu_torch.fp.update import fp_step as p_fp_step
 
-    print("input f_pair", _np(zones.f_pair).ravel())
-    print("reference", _np(ref()).ravel())
+    cfg = SIZES[size]
+    a, k = fp_args(cfg, step + 1)[step]
+    jsim = jex.small_corona(**cfg)
+    port = p_fp_step(*a, **k).zones
+
+    def show(label, z):
+        diff = {q: np.max(np.abs(_np(getattr(z, q)) - _np(getattr(port, q))))
+                / max(np.max(np.abs(_np(getattr(port, q)))), 1e-300)
+                for q in ("f_nt", "n_pos", "f_pair", "tea")}
+        print(label, "f_pair", _np(z.f_pair).ravel(), "Te",
+              _np(z.tea).ravel(), "differences from the port",
+              " ".join(f"{q} {v:.3e}" for q, v in diff.items()))
+
+    print("input f_pair", _np(a[0].f_pair).ravel(), "end-bin dn_pp",
+          _np(k["dn_pp"])[..., 0].ravel(), _np(k["dn_pp"])[..., -1].ravel())
+    show("reference", reference_fp(jsim, a, k).zones)
+    show("reference without the end-bin terms",
+         reference_fp(jsim, a, k, end_bins=False).zones)
     clipped = jcc._w_over_expm1
-    jcc._w_over_expm1 = limits
-    print("reference with the port's limits", _np(ref()).ravel())
-    jcc._w_over_expm1 = clipped
-    print("port", _np(port_fp(*a, **k).zones.f_pair).ravel())
+    jcc._w_over_expm1 = port_cc_limit
+    try:
+        show("reference with the port's limits",
+             reference_fp(jsim, a, k).zones)
+        show("reference with both repairs",
+             reference_fp(jsim, a, k, end_bins=False).zones)
+    finally:
+        jcc._w_over_expm1 = clipped
+    show("port", port)
 
 
 def main(argv=None):
@@ -169,6 +219,7 @@ def main(argv=None):
     ap.add_argument("--seeds", type=int, nargs="+", default=[0, 1])
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--step", type=int, default=3)
+    ap.add_argument("--size", choices=tuple(SIZES), default="mid")
     args = ap.parse_args(argv)
     torch.set_num_threads(4)
     if args.what == "te":
@@ -176,7 +227,7 @@ def main(argv=None):
     elif args.what == "trajectory":
         trajectory(args.seeds, args.steps)
     else:
-        fp(args.step)
+        fp(args.step, args.size)
 
 
 if __name__ == "__main__":

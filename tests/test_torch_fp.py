@@ -111,7 +111,7 @@ def carried():
     psim.step()
     n_field = psim.last_outputs.tallies.n_field.numpy()
     js, jt, jg = jsim.state, jsim.tables, jsim.grid
-    state, tables, grid, _ = convert.from_reference(
+    state, tables, grid, _, _ = convert.from_reference(
         convert.flatten(js), convert.flatten(jt), convert.flatten(jg),
         convert.flatten(jsim.src_static), device="cpu")
     l_min = jnp.minimum(jg.dz, jg.dr) * jnp.ones_like(jg.vol)

@@ -1,7 +1,9 @@
 """The port's pair physics against the JAX reference: the host-built
 tables (bit for bit), the per-step contractions, the Wien-tail fit of the
-census field, the FP solve with pair sources and positrons, the driver's
-section 1b, and a small pair-producing corona step by step."""
+census field, the FP solve with pair sources and positrons (on made-up
+inputs and on the pair corona's own, against the reference with the
+port's two repairs patched in), the driver's section 1b, and a small
+pair-producing corona step by step."""
 import dataclasses
 
 import jax
@@ -10,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+import compton2d_tpu.fp.chang_cooper as jcc
 from compton2d_tpu import examples as jex
 from compton2d_tpu import tables as jtab
 from compton2d_tpu.fp.update import fp_step as j_fp_step
@@ -23,6 +26,7 @@ from compton2d_tpu_torch import examples as pex
 from compton2d_tpu_torch import tables as ptab
 from compton2d_tpu_torch.fp.update import fp_step as p_fp_step
 from compton2d_tpu_torch.physics import pairs as ppairs
+from compare_pairs import fp_args, port_cc_limit, reference_fp
 
 torch.set_num_threads(2)
 
@@ -259,6 +263,20 @@ def test_fp_step_with_pairs_matches_reference(carried_pairs):
                                    _np(getattr(rj, name)), rtol=1e-5)
 
 
+def test_fp_step_needs_the_pair_terms_under_pair_switch(carried_pairs):
+    """Under pair_switch a call without dn_pp, dne_pa or dnp_pa raises
+    instead of solving without the pair terms."""
+    _, psim, _, state, tables, grid, _, n_field, eloss_sy = carried_pairs
+    pair = dict(dn_pp=state.dn_pp, dne_pa=state.dne_pa, dnp_pa=state.dnp_pa)
+    for missing in pair:
+        with pytest.raises(ValueError, match="pair_switch"):
+            p_fp_step(state.zones, torch.as_tensor(n_field), tables,
+                      grid.vol, float(psim.cfg.grid.z_max), grid.dz,
+                      state.dt, state.time, torch.as_tensor(eloss_sy),
+                      psim.cfg.physics, psim.scales,
+                      **{k: v for k, v in pair.items() if k != missing})
+
+
 def test_pair_terms_skip_the_end_bins(carried_pairs):
     """The end bins are the solve's boundary rows (x = d, zeroed after
     each substep). The reference adds the pair terms there too, and the
@@ -293,6 +311,79 @@ def test_pair_terms_skip_the_end_bins(carried_pairs):
     r0, r1 = ref(0.0 * spike), ref(spike)
     assert not np.allclose(np.asarray(r0.n_pos), np.asarray(r1.n_pos),
                            rtol=1e-3)
+
+
+# ---------------------------------------------------------------------------
+# the FP solve on the pair corona's own inputs
+# ---------------------------------------------------------------------------
+@pytest.fixture(scope="module")
+def path_fp_inputs():
+    """The reference's small pair corona (for its tables) and the
+    arguments of the port's fp_step at steps 0-2 of the same corona
+    (seed 0). Step 1 has pair sources in the end bins, step 2 has
+    positrons and annihilation as well."""
+    return jex.small_corona(**PAIR_CFG), fp_args(PAIR_CFG, 3)
+
+
+@pytest.mark.parametrize("step", [1, 2])
+def test_fp_step_on_the_path_matches_repaired_reference(
+        step, path_fp_inputs, monkeypatch):
+    """The port's fp_step on its own pair corona inputs against the
+    reference's fp_step with the port's two repairs patched in by this
+    test: the Chang-Cooper weight's limit below w = -500
+    (tests/test_torch_fp.py::test_chang_cooper_under_strong_heating), and
+    no pair terms in the end bins (zeroed in the reference's inputs).
+    Substeps exact; f_nt, n_pos, f_pair, tea and n_e rtol 1e-5 of each
+    array's max."""
+    jsim, seen = path_fp_inputs
+    args, kw = seen[step]
+    if step == 1:
+        assert float(kw["dn_pp"][..., 0].max()) > 0.0
+    else:
+        assert float(args[0].f_pair.max()) > 0.0
+        assert float(kw["dnp_pa"].min()) < 0.0
+    monkeypatch.setattr(jcc, "_w_over_expm1", port_cc_limit)
+    rj = reference_fp(jsim, args, kw, end_bins=False)
+    rp = p_fp_step(*args, **kw)
+    assert int(rp.substeps) == int(rj.substeps)
+    assert float(np.max(rj.zones.f_pair)) > 0.0
+    for name in ("f_nt", "n_pos", "f_pair", "tea", "n_e"):
+        _close_to_max(getattr(rp.zones, name), getattr(rj.zones, name))
+
+
+def test_reference_end_bin_pair_terms_create_positrons(path_fp_inputs,
+                                                       monkeypatch, capsys):
+    """What the end-bin repair takes away, on step 1's inputs (the
+    Chang-Cooper limit does not act there). The reference keeps the end
+    bins' pair source as the boundary value of its solve and zeroes it
+    after each substep, so the source flows into the neighbouring bins
+    without ever leaving the end bin: the positrons it adds to the other
+    bins outnumber those its end-bin source held over the step. The
+    measured gain, f_pair and Te with and without the end-bin terms are
+    printed."""
+    jsim, seen = path_fp_inputs
+    args, kw = seen[1]
+    monkeypatch.setattr(jcc, "_w_over_expm1", port_cc_limit)
+    kept = reference_fp(jsim, args, kw, end_bins=True).zones
+    dropped = reference_fp(jsim, args, kw, end_bins=False).zones
+    gnt = np.asarray(jsim.tables.gnt, np.float32)
+    dg = np.diff(gnt)
+    wdg = np.concatenate([dg, [0.0]])
+    dn_pp = kw["dn_pp"].numpy().astype(np.float64)
+    held = float(args[6]) * (dn_pp[..., 0] * dg[0]
+                             + dn_pp[..., -1] * dg[-1])
+    added = np.sum((np.asarray(kept.n_pos, np.float64)
+                    - np.asarray(dropped.n_pos, np.float64)) * wdg, axis=-1)
+    z = int(np.argmax(held))
+    gain = added.ravel()[z] / held.ravel()[z]
+    with capsys.disabled():
+        print(f"\nzone {z}: end-bin source {held.ravel()[z]:.4e}, positrons "
+              f"added {added.ravel()[z]:.4e}, gain {gain:.4f}; f_pair "
+              f"{float(np.ravel(kept.f_pair)[z]):.4e} with the end-bin "
+              f"terms, {float(np.ravel(dropped.f_pair)[z]):.4e} without; Te "
+              f"{float(np.ravel(kept.tea)[z]):.4f} and "
+              f"{float(np.ravel(dropped.tea)[z]):.4f} keV")
+    assert gain > 1.0
 
 
 # ---------------------------------------------------------------------------

@@ -26,7 +26,7 @@ N = 4096
 def setup():
     jsim = jex.small_corona(nz=3, nr=2, nst=3000, n_slots=N, num_nt=50,
                             n_vol=64, nphfield=64, seed=1)
-    _, tables, grid, src = convert.from_reference(
+    _, tables, grid, src, _ = convert.from_reference(
         convert.flatten(jsim.state), convert.flatten(jsim.tables),
         convert.flatten(jsim.grid), convert.flatten(jsim.src_static),
         device="cpu")

@@ -192,7 +192,7 @@ def test_zone_pass_on_converted_mrk421_state():
     jsim = jex.mrk421(nz=4, nr=2, nst=1500, n_slots=8192, num_nt=160,
                       n_vol=64, nphfield=64)
     js, jt, jg = jsim.state, jsim.tables, jsim.grid
-    state, tabs, grid, _ = convert.from_reference(
+    state, tabs, grid, _, _ = convert.from_reference(
         convert.flatten(js), convert.flatten(jt), convert.flatten(jg),
         convert.flatten(jsim.src_static), device="cpu")
     zj, zp = js.zones, state.zones

@@ -25,6 +25,13 @@ Phases (any failure raises and the script exits non-zero):
    runs it); after one iteration at most 1e-4 of the lanes may exceed
    rtol 1e-5, each by less than 10x its own sensitivity to 2-ulp changes
    of its inputs;
+2d. the same for the kernel's windowed mode (grids above 1024 zones: a
+   flying lane outside its tile's 256-zone window freezes with
+   FLAG_WINDOW), at large_corona's shapes (524288 slots, 99x99 zones, 400
+   energy and 200 gamma bins) with the live slots zone-sorted by the
+   port's ``zone_sort`` and the free tail refilled out of zone order, as
+   on the path, with 256 iterations; it counts the FLAG_WINDOW lanes,
+   which must be above 0;
 3. the main path: ``small_corona`` at the benchmark size with the FP
    solve on, 2 warm-up and 8 timed steps through ``Simulation.step()``,
    checking the kernel launches, device placement, the per-step energy
@@ -47,7 +54,16 @@ Phases (any failure raises and the script exits non-zero):
    then its stratified variant (gamma_c 10, p_max 0.5) for 3 steps, with
    each step's tracking rounds and kernel iterations beside the zones'
    largest Thomson depth: a step of many rounds must start with a zone
-   of Thomson depth above 10.
+   of Thomson depth above 10;
+6. the large grid: ``large_corona`` (``small_corona`` at 99x99 zones,
+   524288 slots, nst 240000, the main path's widths, FP on), 1 warm-up
+   and 3 timed steps through ``Simulation.step()``, then the reference's
+   windowed-test grid (40x30 zones, 131072 slots) for 2 steps, twice from
+   the seed: windowed launches only and no plain-version run, every
+   tensor on the card, every step's energy audit, finite temperatures,
+   escapes, bitwise-repeatable tallies (40x30), and per step the rounds,
+   the FLAG_WINDOW freezes and the stragglers sent to census, with the
+   card's peak memory.
 
 Each kernel's wrapper counts its launches; the counts are set to 0 just
 before each main path and read just after. The line before the last is a
@@ -73,9 +89,10 @@ from compton2d_tpu_torch import run_mrk421
 from compton2d_tpu_torch.config import RunConfig
 from compton2d_tpu_torch.constants import SIGMA_THOMSON
 from compton2d_tpu_torch.examples import small_corona
+from compton2d_tpu_torch.state import PhotonArray
 from compton2d_tpu_torch.physics.electron_dist import gnt_grid
 from compton2d_tpu_torch.tables import e_field_grid, e_gg_grid
-from compton2d_tpu_torch.transport import flight, tracking
+from compton2d_tpu_torch.transport import flight, population, tracking
 
 N_SLOTS, NZ, NR, N_VOL, NUM_NT = 1 << 17, 8, 4, 400, 200
 MRK_NZ, MRK_NR = 10, 4       # the Mrk 421 grid
@@ -87,6 +104,10 @@ PAIR_AUDIT_TOL = 5e-3   # tools/pallas_e2e.py's audit bound
 # a strat pair step of more rounds than this must start optically thick
 STRAT_THICK_ROUNDS, THICK_TAU = 50, 10.0
 TIMED_STEPS, WARM_STEPS = 8, 2
+# the large grid (large_corona) and the reference's windowed-test grid
+LARGE_NZ, LARGE_NR, LARGE_SLOTS, LARGE_NST = 99, 99, 1 << 19, 240000
+GRID_NZ, GRID_NR = 40, 30
+LARGE_TIMED, LARGE_WARM, GRID_STEPS = 3, 1, 2
 AUDIT_TOL = 2e-3     # |balance - 1|, the JAX tests' bound
 MRK_AUDIT_TOL = 5e-3  # the bound of tests/test_mrk421.py
 MAX_TRIES = RunConfig().max_scatter_tries
@@ -109,6 +130,12 @@ MAX_OVER = 1e-4
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def reset_launches() -> None:
+    """Set every kernel launch count of the flight wrapper to 0."""
+    flight.LAUNCHES = flight.STRAT_LAUNCHES = flight.PAIR_LAUNCHES = 0
+    flight.WINDOW_LAUNCHES = 0
 
 
 def card_line() -> str:
@@ -198,19 +225,23 @@ def run_flight(fn, photons, tables, seeds, max_iters, nz=NZ, nr=NR,
 def flight_bound(photons, tables, res, nz: int, nr: int,
                  pairs: bool = False) -> dict:
     """The least time of one flight-kernel entry on these inputs: the
-    larger of its bytes (each input read once, each output, log and tally
-    written once; the strat mode writes no logs; the pair mode also reads
-    the kgg table) over the HBM rate and its operations over the float32
-    rate. The operations are the lower counts above times the least
-    lane-iterations that the kernel's result ``res`` shows: one flight
-    per live lane and one more per scatter (each with the kgg lookup in
-    the pair mode), and one SCT_A and one SCT_B iteration per scatter."""
+    larger of its bytes (each input read once, each output, log and the
+    (2, nz*nr) tally written once; the strat mode writes no logs; the
+    pair mode also reads the kgg table; the kernel's own intermediates,
+    such as its per-block tally partials and the windowed mode's base
+    blocks, are not the function's and are not counted) over the HBM rate
+    and its operations over the float32 rate. The operations are the lower
+    counts above times the least lane-iterations that the kernel's result
+    ``res`` shows: one flight per live lane and one more per scatter (each
+    with the kgg lookup in the pair mode), and one SCT_A and one SCT_B
+    iteration per scatter."""
     n = photons["e"].shape[0]
     nzr = nz * nr
     table_elems = sum(t.numel() for t in (
         tables.sig, tables.kap, tables.cdf, tables.guide, tables.gm1,
         tables.r_edges, tables.z_edges) + ((tables.kgg,) if pairs else ()))
-    bytes_in = 4 * (12 * n + n // flight.TILE + table_elems)
+    n_tiles = n // flight.TILE
+    bytes_in = 4 * (12 * n + n_tiles + table_elems)
     bytes_out = 4 * (20 * n + 2 * nzr) + 8 * res.iglog.numel()
     live = photons["alive"] & (photons["dcen"] > 0.0)
     scatters = int(res.sct_cnt[live].sum())
@@ -234,19 +265,39 @@ def outputs_equal(a, b) -> bool:
     return True
 
 
-def assert_sums_close(k, p, tol: float, e_scale: float, label: str):
+def assert_sums_close(k, p, tol: float, e_scale: float, label: str,
+                      w_zone=None):
     """Tallies and energy sums of kernel ``k`` against plain ``p``. The two
     add in different orders, so each is held to ``tol`` of its natural
     scale: the input energy for the energy sums, each zone's edep for
     edep, and c x edep for prdep, a signed sum of terms up to
-    c x (absorbed energy) that cancels to a much smaller net value."""
+    c x (absorbed energy) that cancels to a much smaller net value. With
+    ``w_zone`` (the windowed mode's 99x99 zones only), each zone's sum of
+    the weights that deposit in it, edep and prdep may also differ by
+    2^-22 of that weight (c x that for prdep): a deposit w - w exp(-x)
+    inherits a last-bit difference of exp(-x) at w's own scale, which a
+    weakly absorbing zone's small net deposit cannot hide."""
     ed_k, ed_p = k.tally[0], p.tally[0]
-    torch.testing.assert_close(
-        ed_k, ed_p, rtol=tol, atol=tol * float(torch.max(torch.abs(ed_p))),
-        msg=lambda m: f"{label} edep: {m}")
     c_light = float(np.float32(2.9979245620e10))
+    if w_zone is None:
+        torch.testing.assert_close(
+            ed_k, ed_p, rtol=tol,
+            atol=tol * float(torch.max(torch.abs(ed_p))),
+            msg=lambda m: f"{label} edep: {m}")
+    else:
+        err = torch.abs(ed_k - ed_p)
+        bound = (tol * torch.abs(ed_p)
+                 + tol * float(torch.max(torch.abs(ed_p)))
+                 + 2.0 ** -22 * w_zone)
+        if bool(torch.any(err > bound)):
+            i = int(torch.argmax(err - bound))
+            raise AssertionError(f"{label} edep: zone {i} error "
+                                 f"{float(err[i])} over bound "
+                                 f"{float(bound[i])}")
     err = torch.abs(k.tally[1] - p.tally[1])
     bound = tol * (c_light * torch.abs(ed_p) + torch.abs(p.tally[1]))
+    if w_zone is not None:
+        bound = bound + c_light * 2.0 ** -22 * w_zone
     if bool(torch.any(err > bound)):
         raise AssertionError(f"{label} prdep: max error {float(err.max())}"
                              f" over bound {float(bound.min())}")
@@ -285,8 +336,19 @@ def lane_sensitivity(photons, tables, seeds, p, kw) -> dict:
 def phase_kernel(device, label: str, nz: int, nr: int, inline: bool,
                  max_iters: int, pairs: bool = False, **shapes) -> dict:
     """One kernel mode against its plain version at (nz, nr) zones; with
-    ``pairs``, the pair mode at the ``shapes`` of kernel_inputs."""
+    ``pairs``, the pair mode at the ``shapes`` of kernel_inputs; above
+    1024 zones, the windowed mode on inputs zone-sorted as on the path."""
     photons, tables, seeds = kernel_inputs(device, nz, nr, **shapes)
+    win_z = flight.window_z(nz, nr)
+    if win_z:
+        # the census zone-sorted, then its free tail refilled out of zone
+        # order, as emission refills it on the path with boundary photons
+        # spread over the grid: those tiles freeze lanes at once
+        fields = PhotonArray._fields
+        photons = population.zone_sort(
+            PhotonArray(*(photons[f] for f in fields)), nz, nr,
+            win_z)._asdict()
+        photons["alive"] = torch.ones_like(photons["alive"])
     n = photons["e"].shape[0]
     e_scale = float(torch.sum(photons["w"]))   # total input energy
     kw = dict(nz=nz, nr=nr, inline=inline, pairs=pairs)
@@ -331,15 +393,27 @@ def phase_kernel(device, label: str, nz: int, nr: int, inline: bool,
                     f"10x their sensitivity, max {float(err.max()):.3e}")
             n_over = max(n_over, n_f)
         max_abs = max(max_abs, float(torch.max(err)))
-    assert_sums_close(k, p, 1e-5, e_scale, f"{label} (a)")
+    # the windowed mode's 99x99 zones: each zone's depositing weight
+    # (in one iteration each live lane deposits in its own zone only)
+    w_zone = None
+    if win_z:
+        live = photons["alive"] & (photons["dcen"] > 0.0)
+        zid = (torch.clamp(photons["jz"], 0, nz - 1) * nr
+               + torch.clamp(photons["kr"], 0, nr - 1))
+        w_zone = torch.zeros(nz * nr, device=device).index_add_(
+            0, zid.long(), torch.where(live, photons["w"], 0.0))
+    assert_sums_close(k, p, 1e-5, e_scale, f"{label} (a)", w_zone)
     n_sct = int((k.flag == flight.FLAG_SCATTER).sum())
     if not inline and n_sct == 0:
         raise AssertionError(f"{label} (a) no lane froze with FLAG_SCATTER")
+    n_win = int((k.flag == flight.FLAG_WINDOW).sum())
+    if win_z and n_win == 0:
+        raise AssertionError(f"{label} (a) no lane froze with FLAG_WINDOW")
     if pairs and not float(p.epair) > 1e-3 * e_scale:
         raise AssertionError(f"{label} (a) epair {float(p.epair)} too small")
-    log(f"{label} (a) max_iters=1: integers exact ({n_sct} FLAG_SCATTER "
-        f"lanes), max |float diff| = {max_abs:.3e} (lanes over rtol 1e-5: "
-        f"{n_over}), epair kernel "
+    log(f"{label} (a) max_iters=1: integers exact ({n_sct} FLAG_SCATTER, "
+        f"{n_win} FLAG_WINDOW lanes), max |float diff| = {max_abs:.3e} "
+        f"(lanes over rtol 1e-5: {n_over}), epair kernel "
         f"{float(k.epair):.6e} plain {float(p.epair):.6e}")
 
     # (b) the path's budget: >= 99% of lanes with identical integer
@@ -359,7 +433,8 @@ def phase_kernel(device, label: str, nz: int, nr: int, inline: bool,
     log(f"{label} (b) max_iters={max_iters}: identical lanes {frac:.6f}, "
         f"it_used kernel {k.it_used} plain {p.it_used}, scatters/lane "
         f"{float(k.sct_cnt.float().mean()):.3f}, FLAG_SCATTER lanes "
-        f"{int((k.flag == flight.FLAG_SCATTER).sum())}, epair/input "
+        f"{int((k.flag == flight.FLAG_SCATTER).sum())}, FLAG_WINDOW lanes "
+        f"{int((k.flag == flight.FLAG_WINDOW).sum())}, epair/input "
         f"{float(k.epair) / e_scale:.6f}")
 
     # (c) repeatability: a second launch is bitwise equal
@@ -414,8 +489,11 @@ def state_devices(state) -> set:
     return devs
 
 
-def bench_sim(device, seed: int = 0):
-    return small_corona(nz=NZ, nr=NR, nst=60000, n_slots=N_SLOTS,
+def bench_sim(device, seed: int = 0, nz: int = NZ, nr: int = NR,
+              nst: int = 60000, n_slots: int = N_SLOTS):
+    """The main path's corona; with other (nz, nr, nst, n_slots) the
+    large grid's coronae at the main path's widths."""
+    return small_corona(nz=nz, nr=nr, nst=nst, n_slots=n_slots,
                         num_nt=NUM_NT, n_vol=N_VOL, nphfield=400,
                         t_const=False, max_flight_iters=256, seed=seed,
                         device=device)
@@ -432,7 +510,7 @@ def small_audit(device, seed: int):
 def phase_main_path(device, card: str) -> int:
     sim = bench_sim(device)
     outs = []
-    flight.LAUNCHES = flight.STRAT_LAUNCHES = flight.PAIR_LAUNCHES = 0
+    reset_launches()
     for _ in range(WARM_STEPS):
         outs.append(sim.step())
     torch.cuda.synchronize()
@@ -444,8 +522,9 @@ def phase_main_path(device, card: str) -> int:
     launches = flight.LAUNCHES
     if launches <= 0:
         raise AssertionError("the main path launched no flight kernel")
-    if flight.STRAT_LAUNCHES or flight.PAIR_LAUNCHES:
-        raise AssertionError("small_corona launched the strat or pair mode")
+    if flight.STRAT_LAUNCHES or flight.PAIR_LAUNCHES or flight.WINDOW_LAUNCHES:
+        raise AssertionError("small_corona launched the strat, pair or "
+                             "windowed mode")
     log(f"main path: {launches} flight kernel launches in "
         f"{WARM_STEPS + TIMED_STEPS} steps")
 
@@ -550,7 +629,7 @@ def phase_mrk421(device, card: str) -> int:
 
         sim.step = audited_step
         tracking.apply_scatter = counted
-        flight.LAUNCHES = flight.STRAT_LAUNCHES = flight.PAIR_LAUNCHES = 0
+        reset_launches()
         try:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -562,10 +641,12 @@ def phase_mrk421(device, card: str) -> int:
         launches = flight.STRAT_LAUNCHES
         if not done:
             raise AssertionError("run_to_stop did not reach t_stop")
-        if launches <= 0 or flight.LAUNCHES or flight.PAIR_LAUNCHES:
+        if (launches <= 0 or flight.LAUNCHES or flight.PAIR_LAUNCHES
+                or flight.WINDOW_LAUNCHES):
             raise AssertionError(f"strat launches {launches}, inline "
                                  f"launches {flight.LAUNCHES}, pair "
-                                 f"launches {flight.PAIR_LAUNCHES}")
+                                 f"launches {flight.PAIR_LAUNCHES}, windowed "
+                                 f"launches {flight.WINDOW_LAUNCHES}")
         if counts["frozen"] <= 0 or counts["copies"] <= 0:
             raise AssertionError(f"scatter counts {counts}")
         devs = state_devices(sim.state)
@@ -707,16 +788,17 @@ def phase_pairs(device, card: str) -> Tuple[int, int]:
     flight.flight_step_reference = counted_reference
     try:
         sim = pair_sim(device)
-        flight.LAUNCHES = flight.STRAT_LAUNCHES = flight.PAIR_LAUNCHES = 0
+        reset_launches()
         warm, _ = drive_pairs(sim, WARM_STEPS)
         timed, elapsed = drive_pairs(sim, PAIR_TIMED)
         launches = flight.PAIR_LAUNCHES
         if launches <= 0 or launches != flight.LAUNCHES:
             raise AssertionError(f"pair launches {launches}, inline "
                                  f"launches {flight.LAUNCHES}")
-        if flight.STRAT_LAUNCHES or plain_runs[0]:
+        if flight.STRAT_LAUNCHES or flight.WINDOW_LAUNCHES or plain_runs[0]:
             raise AssertionError(f"strat launches {flight.STRAT_LAUNCHES}, "
-                                 f"plain-version runs {plain_runs[0]}")
+                                 f"windowed launches {flight.WINDOW_LAUNCHES}"
+                                 f", plain-version runs {plain_runs[0]}")
         log(f"pair corona: {launches} pair-mode flight kernel launches in "
             f"{WARM_STEPS + PAIR_TIMED} steps, the plain version never ran")
         seen = audit_pair_steps(sim, warm + timed, "pair corona")
@@ -783,7 +865,7 @@ def phase_pairs_strat(device, card: str, plain_runs: list) -> int:
         iters[-1] += int(res.it_used)
         return res
 
-    flight.LAUNCHES = flight.STRAT_LAUNCHES = flight.PAIR_LAUNCHES = 0
+    reset_launches()
     sim = pair_sim(device, strat=True)
     cap = sim.cfg.run.max_flight_iters
     outs = []
@@ -801,7 +883,8 @@ def phase_pairs_strat(device, card: str, plain_runs: list) -> int:
         flight.flight_step = launch
     launches = flight.STRAT_LAUNCHES
     if not (launches > 0 and flight.PAIR_LAUNCHES == launches
-            and flight.LAUNCHES == 0 and plain_runs[0] == 0):
+            and flight.LAUNCHES == 0 and flight.WINDOW_LAUNCHES == 0
+            and plain_runs[0] == 0):
         raise AssertionError(
             f"strat pair corona launches: strat {launches} pair "
             f"{flight.PAIR_LAUNCHES} inline {flight.LAUNCHES} plain "
@@ -822,6 +905,125 @@ def phase_pairs_strat(device, card: str, plain_runs: list) -> int:
     log(f"strat pair corona on {card}: {1e3 * elapsed / PAIR_STRAT_STEPS:.3f}"
         f" ms/step, {launches} pair-mode strat launches in "
         f"{PAIR_STRAT_STEPS} steps")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 6: the large grid
+# ---------------------------------------------------------------------------
+def drive_large(sim, warm: int, timed: int):
+    """Outputs of warm + timed steps and the seconds of the timed ones."""
+    outs = [sim.step() for _ in range(warm)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(timed):
+        outs.append(sim.step())
+    torch.cuda.synchronize()
+    return outs, time.perf_counter() - t0
+
+
+def check_windowed_run(label: str, plain_runs: list) -> int:
+    """Windowed launches only, and no plain-version run; returns their
+    count."""
+    launches = flight.WINDOW_LAUNCHES
+    if not (launches > 0 and flight.LAUNCHES == launches
+            and flight.STRAT_LAUNCHES == 0 and flight.PAIR_LAUNCHES == 0
+            and plain_runs[0] == 0):
+        raise AssertionError(
+            f"{label} launches: windowed {launches} inline {flight.LAUNCHES}"
+            f" strat {flight.STRAT_LAUNCHES} pair {flight.PAIR_LAUNCHES} "
+            f"plain {plain_runs[0]}")
+    return launches
+
+
+def audit_large_steps(sim, outs, label: str) -> None:
+    """Every step's audit within AUDIT_TOL and escapes above 0, each step's
+    rounds, FLAG_WINDOW freezes and stragglers logged; then finite zone
+    temperatures and every tensor of the state on the card."""
+    for i, out in enumerate(outs):
+        sim.last_outputs = out
+        a = sim.energy_audit()
+        t = out.tallies
+        log(f"{label} step {i}: balance {a['balance']:.7f} escaped "
+            f"{a['escaped']:.4e} erg census {a['census']:.4e} erg rounds "
+            f"{int(t.trk_rounds)} FLAG_WINDOW freezes {int(t.n_window)} "
+            f"stragglers {int(t.n_straggler)} tracked {int(out.n_tracked)} "
+            f"fp_substeps {int(out.fp_substeps)} fp_incomplete "
+            f"{int(out.fp_incomplete)}")
+        if not abs(a["balance"] - 1.0) < AUDIT_TOL:
+            raise AssertionError(f"{label} step {i}: audit {a['balance']}")
+        if not a["escaped"] > 0.0:
+            raise AssertionError(f"{label} step {i}: nothing escaped")
+    tea = sim.state.zones.tea
+    if not bool(torch.all(torch.isfinite(tea))):
+        raise AssertionError(f"{label}: non-finite zone temperatures")
+    if state_devices(sim.state) != {"cuda"}:
+        raise AssertionError(f"{label}: state tensors left the card")
+    log(f"{label} zone Te [keV]: min {float(tea.min()):.3f} max "
+        f"{float(tea.max()):.3f}")
+
+
+def per_step(outs, field: str) -> float:
+    return sum(int(getattr(o.tallies, field)) for o in outs) / len(outs)
+
+
+def phase_large(device, card: str) -> int:
+    """large_corona for LARGE_WARM + LARGE_TIMED steps, then the 40x30 grid
+    twice from the seed for GRID_STEPS steps; returns large_corona's
+    windowed launches."""
+    plain_runs = [0]
+    reference = flight.flight_step_reference
+
+    def counted_reference(*a, **k):
+        plain_runs[0] += 1
+        return reference(*a, **k)
+
+    flight.flight_step_reference = counted_reference
+    try:
+        sim = bench_sim(device, nz=LARGE_NZ, nr=LARGE_NR, nst=LARGE_NST,
+                        n_slots=LARGE_SLOTS)
+        torch.cuda.reset_peak_memory_stats(device)
+        reset_launches()
+        outs, elapsed = drive_large(sim, LARGE_WARM, LARGE_TIMED)
+        launches = check_windowed_run("large_corona", plain_runs)
+        peak = torch.cuda.max_memory_allocated(device)
+        audit_large_steps(sim, outs, "large_corona")
+        timed = outs[LARGE_WARM:]
+        histories = sum(int(o.n_tracked) for o in timed)
+        log(f"large_corona on {card}: {1e3 * elapsed / LARGE_TIMED:.3f} "
+            f"ms/step, {histories / elapsed:.6e} histories/s, "
+            f"{per_step(timed, 'trk_rounds'):.2f} rounds/step, "
+            f"{per_step(timed, 'n_window'):.1f} FLAG_WINDOW freezes/step, "
+            f"{per_step(timed, 'n_straggler'):.1f} stragglers/step "
+            f"({LARGE_TIMED} timed steps after {LARGE_WARM} warm-up, "
+            f"{launches} windowed launches in all); peak memory "
+            f"{peak} bytes")
+        del sim, outs, timed
+
+        # the reference's windowed-test grid (tests/test_flight_pallas2.py)
+        # at the main path's widths and slots, twice from the seed
+        reset_launches()
+        sim = bench_sim(device, nz=GRID_NZ, nr=GRID_NR)
+        outs, elapsed = drive_large(sim, 0, GRID_STEPS)
+        check_windowed_run("grid 40x30", plain_runs)
+        audit_large_steps(sim, outs, "grid 40x30")
+        sim2 = bench_sim(device, nz=GRID_NZ, nr=GRID_NR)
+        for i, o1 in enumerate(outs):
+            o2 = sim2.step()
+            for f in o2.tallies._fields:
+                if not torch.equal(getattr(o2.tallies, f),
+                                   getattr(o1.tallies, f)):
+                    raise AssertionError(f"grid 40x30 step {i}: tally {f} "
+                                         "not repeatable")
+        histories = sum(int(o.n_tracked) for o in outs)
+        log(f"grid 40x30 on {card}: {1e3 * elapsed / GRID_STEPS:.3f} "
+            f"ms/step, {histories / elapsed:.6e} histories/s, "
+            f"{per_step(outs, 'trk_rounds'):.2f} rounds/step, "
+            f"{per_step(outs, 'n_window'):.1f} FLAG_WINDOW freezes/step, "
+            f"{per_step(outs, 'n_straggler'):.1f} stragglers/step; "
+            f"tallies bitwise repeatable from the seed ({GRID_STEPS} steps)")
+    finally:
+        flight.flight_step_reference = reference
     return launches
 
 
@@ -849,9 +1051,12 @@ def main() -> int:
                                  PAIR_NR, False, 256, pairs=True,
                                  n=PAIR_SLOTS, n_vol=PAIR_VOL,
                                  num_nt=PAIR_NT, n_gg=PAIR_GG)
+    k_window = phase_kernel(device, "windowed kernel", LARGE_NZ, LARGE_NR,
+                            True, 256, n=LARGE_SLOTS)
     launches_inline = phase_main_path(device, card)
     launches_strat = phase_mrk421(device, card)
     launches_pairs, launches_pairs_strat = phase_pairs(device, card)
+    launches_window = phase_large(device, card)
 
     replaces = "compton2d_tpu/transport/flight_pallas2.py:347"
     log(json.dumps({"kernels": [
@@ -871,6 +1076,10 @@ def main() -> int:
          "source": "compton2d_tpu_torch/csrc/flight.cu",
          "replaces": replaces, "launches": launches_pairs_strat,
          "library_ms": None, **k_pairs_strat},
+        {"name": "flight_kernel_windowed", "route": "cuda",
+         "source": "compton2d_tpu_torch/csrc/flight.cu",
+         "replaces": replaces, "launches": launches_window,
+         "library_ms": None, **k_window},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

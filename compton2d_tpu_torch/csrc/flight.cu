@@ -2,8 +2,9 @@
 // Compton scatter sampler inlined, or with collisions handed back.
 //
 // Replaces compton2d_tpu/transport/flight_pallas2.py::_flight_kernel_v2 in
-// its resident-table modes (the Pallas call at flight_pallas2.py:1124),
-// selected at run time by `inline_scatter`:
+// its resident-table modes (the Pallas call at flight_pallas2.py:1124) and
+// its windowed mode (the call at :1077), selected at run time by
+// `inline_scatter`:
 //   1  (inline scatter) each thread owns one photon slot and runs the
 //      per-lane state machine FLY -> SCT_A -> SCT_B -> FLY until census,
 //      leak, weight kill or max_iters;
@@ -16,7 +17,17 @@
 //      e_gg grid and scaled down by e / e_gg0 below it, to the absorption;
 //      above 47 keV its share of the absorbed energy goes to epair instead
 //      of edep (flight_pallas2.py:470-496, 549-560);
-//   0  no gamma-gamma absorption (the kgg table is not read).
+//   0  no gamma-gamma absorption (the kgg table is not read);
+// and by `win_z` (any of the above):
+//   0  per-zone tallies over the whole grid, nz * nr <= 1024;
+//   W  grids above 1024 zones (nz, nr <= 127): each 1024-slot tile owns
+//      the 2W-zone window that starts at zone base[tile] * W. At the top
+//      of each iteration a FLY lane whose unclipped zone id lies outside
+//      it freezes with FLAG_WINDOW for the caller's next round (flight_
+//      pallas2.py:437-446); SCT lanes go on. The tallies are kept per
+//      window (n_blocks, 2, 2W) and the wrapper adds them at base * W + j.
+//      The tables stay in global memory and are read by global zone id:
+//      the Pallas kernel's window copies of them are VMEM workarounds.
 // The states:
 //   FLY   optical-depth draw, log-linear sigma/kappa (and kgg) lookup,
 //         distance to the next r-shell / z-plane, event select, continuous
@@ -40,8 +51,10 @@
 // iteration the lanes that deposit in the same zone are summed in lane
 // order by the lowest such lane into the warp's own shared-memory row, and
 // at exit the block adds its warps' rows in warp order into a per-block
-// partial (n_blocks, 2, nzr) that the wrapper sums with torch.sum. No float
-// atomics are used, so equal inputs give bitwise-equal outputs.
+// partial (n_blocks, 2, nzr) that the wrapper sums with torch.sum (in the
+// windowed mode, a window partial that the wrapper adds in block order and
+// then by a sorted segment sum). No float atomics are used, so equal inputs
+// give bitwise-equal outputs.
 //
 // Random numbers: the counter hash of the Pallas interpret mode
 // (flight_pallas2.py:114-140), keyed by (tile seed, iteration, draw, lane)
@@ -54,7 +67,8 @@
 // as the plain version's does.
 //
 // This first version is simple on purpose: one thread per slot, tables in
-// global memory, no sorting by zone, no persistent blocks.
+// global memory, no persistent blocks. (The caller zone-sorts the slots
+// for the windowed mode, so that a tile's lanes share a window.)
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -73,6 +87,7 @@ constexpr unsigned FULL = 0xffffffffu;
 constexpr int FLAG_NONE = 0;
 constexpr int FLAG_SCATTER = 1;
 constexpr int FLAG_LEAK = 2;
+constexpr int FLAG_WINDOW = 3;
 constexpr int MODE_FLY = 0;
 constexpr int MODE_SCT_A = 1;
 constexpr int MODE_SCT_B = 2;
@@ -96,6 +111,7 @@ struct Pointers {
   const float* z; const float* mu; const float* cphi; const float* sphi;
   const float* dcen; const int* jz; const int* kr; const int* alive;
   const int* seeds;
+  const int* base;     // (n / TILE,) window base blocks (win_z > 0)
   // zone tables (natural layout)
   const float* sig;    // (nzr, n_vol)
   const float* kap;    // (nzr, n_vol)
@@ -111,15 +127,15 @@ struct Pointers {
   int* jz_o; int* kr_o; int* alive_o; int* mode_o; int* flag_o;
   int* jn_o; int* kn_o; int* it_o;
   float* ekill_o; float* esct_o; float* epair_o; int* cnt_o;
-  float* tally_part;   // (n_blocks, 2, nzr)
+  float* tally_part;   // (n_blocks, 2, nzr), or (n_blocks, 2, 2 win_z)
   int* iglog;          // (n, K_LOG)
   float* delog;        // (n, K_LOG)
 };
-constexpr int N_POINTERS = 44;
+constexpr int N_POINTERS = 45;
 
 struct Scalars {
   int n, nz, nr, n_vol, n_gg, num_nt, max_iters, max_tries, inline_scatter,
-      pair_switch;
+      pair_switch, win_z;
   float e_ph_log0, e_ph_dlog, x_ph_hi, e_gg_log0, e_gg_dlog, x_gg_hi, e_gg0,
       weight_floor;
 };
@@ -165,19 +181,21 @@ __global__ void __launch_bounds__(THREADS)
 flight_kernel(Pointers p, Scalars s) {
   extern __shared__ float smem[];
   const int nzr = s.nz * s.nr;
-  float* wtally = smem;                                  // [WARPS][2][nzr]
-  float* st_ed = wtally + WARPS * 2 * nzr;               // [WARPS][32]
+  const int tw = s.win_z ? 2 * s.win_z : nzr;            // tally width
+  float* wtally = smem;                                  // [WARPS][2][tw]
+  float* st_ed = wtally + WARPS * 2 * tw;                // [WARPS][32]
   float* st_pr = st_ed + THREADS;                        // [WARPS][32]
 
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int wl = tid & 31;
-  for (int i = tid; i < WARPS * 2 * nzr; i += THREADS) wtally[i] = 0.0f;
+  for (int i = tid; i < WARPS * 2 * tw; i += THREADS) wtally[i] = 0.0f;
   __syncthreads();
 
   const int slot = blockIdx.x * THREADS + tid;
   const uint32_t lane = (uint32_t)(slot % TILE);
   const uint32_t seed = (uint32_t)p.seeds[slot / TILE];
+  const int win0 = s.win_z ? p.base[slot / TILE] * s.win_z : 0;
 
   float e = p.e[slot], w = p.w[slot], r = p.r[slot], z = p.z[slot];
   float mu = p.mu[slot], cphi = p.cphi[slot], sphi = p.sphi[slot];
@@ -197,20 +215,32 @@ flight_kernel(Pointers p, Scalars s) {
     }
   }
 
-  float* my_tally = wtally + warp * 2 * nzr;
+  float* my_tally = wtally + warp * 2 * tw;
   float* my_ed = st_ed + warp * 32;
   float* my_pr = st_pr + warp * 32;
 
   int it = 0;
   while (true) {
     const bool live = (alive == 1) && (flag == FLAG_NONE);
-    const bool fly = live && (mode == MODE_FLY) && (dcen > 0.0f);
+    bool fly = live && (mode == MODE_FLY) && (dcen > 0.0f);
     const bool in_a = live && (mode == MODE_SCT_A);
     const bool in_b = live && (mode == MODE_SCT_B);
     if (!__any_sync(FULL, (it < s.max_iters) && (fly || in_a || in_b)))
       break;
     const uint32_t itu = (uint32_t)it;
+    // global zone id (table rows) and the tally's zone key
     const int zid = clipi(jz * s.nr + kr, 0, nzr - 1);
+    int tkey = zid;
+    if (s.win_z) {
+      // window-local id from the unclipped zone id; a FLY lane outside
+      // the window freezes (an SCT lane stays in the zone it flew in)
+      const int lz = jz * s.nr + kr - win0;
+      if (fly && (lz < 0 || lz >= 2 * s.win_z)) {
+        flag = FLAG_WINDOW;
+        fly = false;
+      }
+      tkey = clipi(lz, 0, 2 * s.win_z - 1);
+    }
     float edep_add = 0.0f, prdep_add = 0.0f, d_e = 0.0f;
 
     if (fly) {
@@ -473,7 +503,7 @@ flight_kernel(Pointers p, Scalars s) {
 
     // ---- per-zone tallies: fixed-order warp reduction ------------------
     const float ed_c = edep_add + d_e;
-    const int key = (fly || in_b) ? zid : -1;
+    const int key = (fly || in_b) ? tkey : -1;
     __syncwarp();
     my_ed[wl] = ed_c;
     my_pr[wl] = prdep_add;
@@ -496,7 +526,7 @@ flight_kernel(Pointers p, Scalars s) {
         }
       }
       my_tally[key] = my_tally[key] + sum_ed;
-      my_tally[nzr + key] = my_tally[nzr + key] + sum_pr;
+      my_tally[tw + key] = my_tally[tw + key] + sum_pr;
     }
     __syncwarp();
     it += 1;
@@ -524,10 +554,10 @@ flight_kernel(Pointers p, Scalars s) {
   p.cnt_o[slot] = sct_cnt;
 
   __syncthreads();
-  float* part = p.tally_part + (size_t)blockIdx.x * 2 * nzr;
-  for (int i = tid; i < 2 * nzr; i += THREADS) {
+  float* part = p.tally_part + (size_t)blockIdx.x * 2 * tw;
+  for (int i = tid; i < 2 * tw; i += THREADS) {
     float acc = wtally[i];
-    for (int wp = 1; wp < WARPS; ++wp) acc = acc + wtally[wp * 2 * nzr + i];
+    for (int wp = 1; wp < WARPS; ++wp) acc = acc + wtally[wp * 2 * tw + i];
     part[i] = acc;
   }
 }
@@ -540,16 +570,20 @@ int flight_threads_per_block() { return THREADS; }
 
 // Launches the kernel on `stream` and returns cudaGetLastError().
 // `ptrs` holds the N_POINTERS device pointers in the order of Pointers.
-// n must be a multiple of TILE; nz * nr <= 1024 keeps the per-warp
-// tallies inside 48 KB of shared memory. inline_scatter and pair_switch
-// are 1 or 0.
+// n must be a multiple of TILE. The per-warp tallies fit 48 KB of shared
+// memory with nz * nr <= 1024 (win_z = 0) or 2 * win_z <= 1024 (windowed,
+// nz and nr <= 127, the reference's edge limit). inline_scatter and
+// pair_switch are 1 or 0.
 int flight_launch(const uint64_t* ptrs, int n_ptrs, int n, int nz, int nr,
                   int n_vol, int n_gg, int num_nt, int max_iters,
                   int max_tries, int inline_scatter, int pair_switch,
-                  float e_ph_log0, float e_ph_dlog, float x_ph_hi,
+                  int win_z, float e_ph_log0, float e_ph_dlog, float x_ph_hi,
                   float e_gg_log0, float e_gg_dlog, float x_gg_hi,
                   float e_gg0, float weight_floor, void* stream) {
-  if (n_ptrs != N_POINTERS || n % TILE != 0 || nz * nr > 1024)
+  const bool grid_ok = win_z ? (win_z > 0 && 2 * win_z <= 1024 && nz <= 127
+                                && nr <= 127)
+                             : nz * nr <= 1024;
+  if (n_ptrs != N_POINTERS || n % TILE != 0 || !grid_ok)
     return (int)cudaErrorInvalidValue;
   Pointers p;
   static_assert(sizeof(Pointers) == N_POINTERS * sizeof(void*),
@@ -558,11 +592,11 @@ int flight_launch(const uint64_t* ptrs, int n_ptrs, int n, int nz, int nr,
   for (int i = 0; i < N_POINTERS; ++i)
     dst[i] = reinterpret_cast<const void*>(ptrs[i]);
   Scalars s{n, nz, nr, n_vol, n_gg, num_nt, max_iters, max_tries,
-            inline_scatter ? 1 : 0, pair_switch ? 1 : 0, e_ph_log0,
+            inline_scatter ? 1 : 0, pair_switch ? 1 : 0, win_z, e_ph_log0,
             e_ph_dlog, x_ph_hi, e_gg_log0, e_gg_dlog, x_gg_hi, e_gg0,
             weight_floor};
-  const int nzr = nz * nr;
-  const size_t smem = sizeof(float) * ((size_t)WARPS * 2 * nzr + 2 * THREADS);
+  const int tw = win_z ? 2 * win_z : nz * nr;
+  const size_t smem = sizeof(float) * ((size_t)WARPS * 2 * tw + 2 * THREADS);
   flight_kernel<<<n / THREADS, THREADS, smem,
                   reinterpret_cast<cudaStream_t>(stream)>>>(p, s);
   return (int)cudaGetLastError();

@@ -3,18 +3,18 @@
 
 One step runs the reference's phase order on one device: census clock
 reset, zone pass (B field, emissivities, budget), census roulette, the
-pair fields from the census (pair_switch), emission, tracking through the
-flight kernel, census tallies, the Fokker-Planck electron (and positron)
-update and the time advance. dt is constant, as in the reference's active
-code.
+zone sort of the census (grids above 1024 zones), the pair fields from
+the census (pair_switch), emission, tracking through the flight kernel,
+census tallies, the Fokker-Planck electron (and positron) update and the
+time advance. dt is constant, as in the reference's active code.
 
 The port covers a part of the reference's options: thermal boundaries,
 synchrotron volume emission and shock injection, census roulette,
 stratified tail splitting and gamma-gamma pair physics. ``Simulation``
 raises ``NotImplementedError`` naming the option for anything outside it:
 boundary reflection (cr_sent != 0), device meshes, file-spectrum
-boundaries, the Coulomb FP drift, adaptive dt, coronal flares, grids above
-1024 zones and checkpoints.
+boundaries, the Coulomb FP drift, adaptive dt, coronal flares, grid edges
+above 127 zones and checkpoints.
 
 Run-level outputs (``attach_outputs``): the escaping spectrum, light
 curves and temperature profile accumulate on the host from each step's
@@ -57,7 +57,10 @@ from compton2d_tpu_torch.tables import (
     build_tables,
 )
 from compton2d_tpu_torch.transport import flight, sourcing
-from compton2d_tpu_torch.transport.population import census_roulette
+from compton2d_tpu_torch.transport.population import (
+    census_roulette,
+    zone_sort,
+)
 from compton2d_tpu_torch.transport.tracking import (
     TrackContext,
     TrackStatics,
@@ -177,13 +180,12 @@ def check_slice(cfg: SimConfig, mesh=None) -> None:
         (phys.fp_include_coulomb, "fp_include_coulomb"),
         (cfg.run.adaptive_dt, "adaptive_dt"),
         (phys.flare.enabled, "flare"),
-        (g.nz * g.nr > flight.MAX_ZONES,
-         f"grids with nz*nr > {flight.MAX_ZONES}"),
     ]
     for bad, name in unsupported:
         if bad:
             raise NotImplementedError(f"compton2d_tpu_torch: {name} is not "
                                       "ported yet")
+    flight.window_z(g.nz, g.nr)   # raises above the kernel's grid edge
     if cfg.run.n_slots % flight.TILE:
         raise ValueError(f"n_slots={cfg.run.n_slots} must be a multiple of "
                          f"{flight.TILE}")
@@ -534,6 +536,14 @@ def _step_impl(state: SimState, src: sourcing.SourceStatic, grid: Grid,
     else:
         e_rr = torch.zeros((), dtype=f32, device=dev)
         n_rr = torch.zeros((), dtype=i32, device=dev)
+
+    # ---- 1c. zone sort (the flight kernel's windowed mode) --------------
+    # the windowed mode gives each 1024-slot tile a 2*WIN_Z-zone window:
+    # sort the census by zone bucket, dead slots last, so that emission
+    # fills the free tail in zone order and the tiles stay zone-coherent
+    win_z = flight.window_z(nz, nr)
+    if win_z:
+        photons = zone_sort(photons, nz, nr, win_z)
 
     # ---- 1b. pair physics from the census field (imcgen2d.f:354-396) ----
     if phys.pair_switch:

@@ -3,9 +3,11 @@
 
 The host numpy fits (``expk13``, ``expk43``, ``sync_kernel``) are copies
 of the reference's; ``volume_em`` evaluates the closed-form synchrotron
-kernel on the device for all zones at once, batched as (zones, n_vol,
-num_nt), in float32 with the reference's unit scaling (lengths /L,
-energies /E, frequencies folded by 1e21 Hz).
+kernel on the device batched as (zones, n_vol, num_nt), in chunks of
+zones that keep each such intermediate at or below ZONE_CHUNK_ELEMS
+elements (a 99x99 grid at 400 x 200 bins would need 3.1 GB per
+intermediate at once), in float32 with the reference's unit scaling
+(lengths /L, energies /E, frequencies folded by 1e21 Hz).
 """
 from __future__ import annotations
 
@@ -21,6 +23,8 @@ _SIGMA_T = 6.6524616e-25
 _E_CHARGE = 4.803e-10
 _E_MASS = 9.109e-28
 _NU_FOLD = 1.0e21
+# elements of one (zones, n_vol, num_nt) intermediate of volume_em
+ZONE_CHUNK_ELEMS = 1 << 25
 
 
 def expk13(t: np.ndarray) -> np.ndarray:
@@ -204,18 +208,23 @@ def volume_em(e_ph, gnt, f_nt, tea, n_e, B, amxwl, vol, zsurf, l_min, dt,
     face = 3.0**1.5 * _SIGMA_T * cn.C_LIGHT * ub / (np.pi * nu_b)   # (Z, 1)
     nu_p21 = 9.0e3 / _NU_FOLD * torch.sqrt(nez)
 
-    # t(nu, gamma) = nu / (3 gamma^2 nu_b), (Z, n_vol, num_nt)
-    t = nu21[None, :, None] / (
-        3.0 * (gamma * gamma)[None, None, :] * (nu_b / _NU_FOLD)[:, :, None]
-    )
-    es = face[:, :, None] * sync_kernel_f32(t)
-    j_sy = torch.einsum("zeg,zg->ze", es, f * wdg) * nez / (4.0 * np.pi)
     dfg = f / gamp
     slope = torch.cat([dfg[:, :-1] - dfg[:, 1:], dfg[:, -1:] * 0.0], dim=1)
-    kap_sy = (
-        torch.einsum("zeg,zg->ze", es, slope * gamp) * nez * k_kap_sy
-        / (nu21 * nu21)
-    )
+    fw, sg = f * wdg, slope * gamp
+    chunk = max(1, ZONE_CHUNK_ELEMS // (n_vol * num_nt))
+    j_parts, k_parts = [], []
+    for z0 in range(0, Z, chunk):
+        zs = slice(z0, z0 + chunk)
+        # t(nu, gamma) = nu / (3 gamma^2 nu_b), (chunk, n_vol, num_nt)
+        t = nu21[None, :, None] / (
+            3.0 * (gamma * gamma)[None, None, :]
+            * (nu_b[zs] / _NU_FOLD)[:, :, None]
+        )
+        es = face[zs, :, None] * sync_kernel_f32(t)
+        j_parts.append(torch.einsum("zeg,zg->ze", es, fw[zs]))
+        k_parts.append(torch.einsum("zeg,zg->ze", es, sg[zs]))
+    j_sy = torch.cat(j_parts) * nez / (4.0 * np.pi)
+    kap_sy = torch.cat(k_parts) * nez * k_kap_sy / (nu21 * nu21)
     kap_sy = torch.abs(kap_sy)
     below_plasma = nu21 <= nu_p21
     j_sy = torch.where(below_plasma, 0.0, j_sy)

@@ -7,19 +7,26 @@ times: ``transport_step`` contains the flight kernel, ``_leak`` and
 ``apply_scatter``; ``apply_scatter`` contains its ``scatter_stratified``
 sampler calls; ``pair_fields``, the pair physics of the census field,
 contains its ``hist2d``, ``nph_smooth``, ``dn_pp_from_field`` and
-``pa_rates``). Prints one JSON object::
+``pa_rates``; ``zone_sort`` runs on grids above 1024 zones). Prints one
+JSON object::
 
   python -m compton2d_tpu_torch.profile_phases --config mrk421
   python -m compton2d_tpu_torch.profile_phases --config small_corona
   python -m compton2d_tpu_torch.profile_phases --config pair_corona
+  python -m compton2d_tpu_torch.profile_phases --config large_corona
 
 ``mrk421`` is the dense Mrk 421 run (10x4 zones, 131072 slots, nst
 200000, n_e 2e6, stratified splitting with gamma_c 3e4 and 64 copies)
 to t_stop; ``small_corona`` is the benchmark-size corona (8x4 zones,
 131072 slots, nst 60000) and ``pair_corona`` the pair-producing corona of
 ``tools/pallas_e2e.py`` (4x3 zones, 262144 slots, nst 200000, amxwl 0.5,
-gamma 3-20, pair_switch on), each for 2 warm-up and ``--steps`` timed
-steps.
+gamma 3-20, pair_switch on), ``large_corona`` the corona on the
+reference's largest grid (99x99 zones, 524288 slots, nst 240000, the main
+path's table widths) and ``grid_40x30`` the reference's windowed-test grid
+at the main path's widths and slots; each for 2 warm-up and ``--steps``
+timed steps. Beside the times it prints the tracking rounds, the lanes
+frozen with FLAG_WINDOW and the stragglers sent to census per step, and
+the card's peak memory.
 """
 from __future__ import annotations
 
@@ -40,6 +47,7 @@ from compton2d_tpu_torch.transport import flight, tracking
 PHASES = (
     (driver, "equipartition_b"), (driver, "volume_em"),
     (driver.sourcing, "compute_budget"), (driver, "census_roulette"),
+    (driver, "zone_sort"),
     (driver.sourcing, "emit"), (driver, "zone_sigma_table"),
     (driver, "transport_step"), (flight, "flight_step"),
     (tracking, "_leak"), (tracking, "apply_scatter"),
@@ -62,7 +70,12 @@ def make_sim(config: str, device):
                             num_nt=100, n_vol=128, nphfield=128,
                             t_const=False, pair_switch=1, amxwl=0.5,
                             gmin=3.0, gmax=20.0, device=device)
-    return small_corona(nz=8, nr=4, nst=60000, n_slots=1 << 17, num_nt=200,
+    # (nz, nr, nst, n_slots) of the coronae at the main path's widths
+    nz, nr, nst, n_slots = {
+        "large_corona": (99, 99, 240000, 1 << 19),
+        "grid_40x30": (40, 30, 60000, 1 << 17),
+    }.get(config, (8, 4, 60000, 1 << 17))
+    return small_corona(nz=nz, nr=nr, nst=nst, n_slots=n_slots, num_nt=200,
                         n_vol=400, nphfield=400, t_const=False,
                         max_flight_iters=256, device=device)
 
@@ -92,7 +105,8 @@ def drive(sim, config: str, steps: int, warm: int, on_timed=None):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--config",
-                    choices=("mrk421", "small_corona", "pair_corona"),
+                    choices=("mrk421", "small_corona", "pair_corona",
+                             "large_corona", "grid_40x30"),
                     default="mrk421")
     ap.add_argument("--steps", type=int, default=4)
     ap.add_argument("--warm", type=int, default=2)
@@ -102,9 +116,11 @@ def main(argv=None):
     device = torch.device("cuda", 0)
     flight.build()
 
-    wall, outs = drive(make_sim(args.config, device), args.config,
-                       args.steps, args.warm)
+    sim = make_sim(args.config, device)
+    torch.cuda.reset_peak_memory_stats(device)
+    wall, outs = drive(sim, args.config, args.steps, args.warm)
     n = len(outs)
+    peak = torch.cuda.max_memory_allocated(device)
 
     acc = collections.defaultdict(lambda: [0.0, 0])
     originals = []
@@ -139,6 +155,11 @@ def main(argv=None):
         "histories_per_s": sum(int(o.n_tracked) for o in outs) / wall,
         "rounds_per_step": sum(int(o.tallies.trk_rounds) for o in outs) / n,
         "fp_substeps_per_step": sum(int(o.fp_substeps) for o in outs) / n,
+        "window_freezes_per_step":
+            sum(int(o.tallies.n_window) for o in outs) / n,
+        "stragglers_per_step":
+            sum(int(o.tallies.n_straggler) for o in outs) / n,
+        "peak_memory_bytes": peak,
         "ms_per_step_wrapped": 1e3 * wall_w / len(outs_w),
         "phases_ms_per_step": {k: 1e3 * v[0] / len(outs_w)
                                for k, v in acc.items()},

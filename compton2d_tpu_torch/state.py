@@ -103,6 +103,11 @@ class Tallies(NamedTuple):
     n_rr: torch.Tensor            # int32
     trk_rounds: torch.Tensor      # int32
     n_sct_overflow: torch.Tensor  # int32
+    # the port's own counters (int32): lanes frozen with FLAG_WINDOW by
+    # the windowed flight kernel, summed over rounds, and the live photons
+    # sent to census with flight distance left at the iteration budget
+    n_window: torch.Tensor
+    n_straggler: torch.Tensor
 
     @classmethod
     def zeros(cls, nz, nr, num_nt, nphfield, n_gg, nmu, nphtotal, nph_lc,
@@ -122,6 +127,7 @@ class Tallies(NamedTuple):
             erlk_lower=f(nr), ed_in=f(nr), ed_ref=f(nr),
             e_killed=f(), e_scatter=f(), e_pair_abs=f(), e_src_lost=f(),
             e_rr=f(), n_rr=i(), trk_rounds=i(), n_sct_overflow=i(),
+            n_window=i(), n_straggler=i(),
         )
 
 

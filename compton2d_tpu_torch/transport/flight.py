@@ -1,11 +1,15 @@
 """Whole-step photon flight with the Compton scatter sampler inlined.
 
-The counterpart of ``compton2d_tpu.transport.flight_pallas2`` in its
-resident-table modes: with the scatter sampler inlined
-(``inline_scatter=True``), or with collisions frozen as FLAG_SCATTER for
-the stratified sampler outside (``inline_scatter=False``, the mode of
-``SourceConfig.strat_split``); either one with or without the gamma-gamma
-absorption of ``pair_switch``. Three pieces:
+The counterpart of ``compton2d_tpu.transport.flight_pallas2``: with the
+scatter sampler inlined (``inline_scatter=True``), or with collisions
+frozen as FLAG_SCATTER for the stratified sampler outside
+(``inline_scatter=False``, the mode of ``SourceConfig.strat_split``);
+either one with or without the gamma-gamma absorption of ``pair_switch``;
+and for grids above MAX_ZONES in the windowed mode (``win_z=WIN_Z``, see
+:func:`window_z`): each 1024-slot tile owns the 2*WIN_Z-zone window that
+starts at its base block (:func:`window_base`), a flying lane outside it
+freezes with FLAG_WINDOW for the next outer round, and the per-zone tally
+is kept per window. Three pieces:
 
 - :func:`build_flight_tables` — the per-step zone tables in their natural
   layout (the counterpart of ``build_kernel_tables``): sigma/kappa rows,
@@ -42,10 +46,13 @@ K_LOG = 8          # per-lane scatter-event log depth
 SCAN_S = 4         # CDF bins counted per SCT_A iteration
 GUIDE_G = 512      # electron-CDF guide cells
 MAX_ZONES = 1024   # per-warp tallies must fit 48 KB of shared memory
+MAX_EDGE = 127     # nz, nr each (the reference's cap is 99, general.pa)
+WIN_Z = 128        # windowed mode: zones per window block, two per tile
 
 FLAG_NONE = 0
 FLAG_SCATTER = 1
 FLAG_LEAK = 2
+FLAG_WINDOW = 3    # windowed mode: the lane flew out of its tile's window
 MODE_FLY = 0
 MODE_SCT_A = 1
 MODE_SCT_B = 2
@@ -57,11 +64,12 @@ _M32 = 0xFFFFFFFF
 
 # kernel launches made by flight_step on CUDA tensors, in the inline
 # scatter mode and in the strat (FLAG_SCATTER) mode, and of those the
-# launches with pair_switch on; the plain version on CPU tensors does not
-# count
+# launches with pair_switch on and the windowed launches (win_z > 0); the
+# plain version on CPU tensors does not count
 LAUNCHES = 0
 STRAT_LAUNCHES = 0
 PAIR_LAUNCHES = 0
+WINDOW_LAUNCHES = 0
 
 _SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "flight.cu"
 _BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
@@ -138,6 +146,36 @@ def guide_cell(u: torch.Tensor) -> torch.Tensor:
         (neg_l2 - 1.0) * ((G // 2) / 25.0)
     ).to(torch.int32)
     return torch.clamp(torch.where(u < 0.5, j_lin, j_log), 0, G - 1)
+
+
+def window_z(nz: int, nr: int) -> int:
+    """The kernel mode of an nz x nr grid: 0 (resident tallies) up to
+    MAX_ZONES zones, WIN_Z (windowed) above (the reference's rule,
+    ``compton2d_tpu/transport/tracking.py:541``). Grids with an edge above
+    MAX_EDGE raise NotImplementedError: the reference runs them on its XLA
+    loop, which is not ported."""
+    if nz > MAX_EDGE or nr > MAX_EDGE:
+        raise NotImplementedError(
+            f"compton2d_tpu_torch: grids with nz or nr > {MAX_EDGE} (the "
+            f"reference's XLA tracking loop; nz={nz}, nr={nr}) are not "
+            "ported yet")
+    return 0 if nz * nr <= MAX_ZONES else WIN_Z
+
+
+def window_base(jz, kr, alive, dcen, nz: int, nr: int,
+                win_z: int) -> torch.Tensor:
+    """(n // TILE,) int32 base block of each tile's window: the tile's
+    smallest zone among its live lanes with census distance left (nzr - 1
+    if it has none), // win_z, clipped so that both blocks lie on the
+    zone-padded grid (flight_pallas2.py:1018-1029)."""
+    nzr = nz * nr
+    zid = (torch.clamp(jz, 0, nz - 1) * nr
+           + torch.clamp(kr, 0, nr - 1)).reshape(-1, TILE)
+    act = (alive & (dcen > 0.0)).reshape(-1, TILE)
+    zmin = torch.amin(torch.where(act, zid, nzr - 1), dim=1)
+    n_blocks = -(-nzr // win_z) + 1
+    return torch.clamp(torch.div(zmin, win_z, rounding_mode="floor"), 0,
+                       n_blocks - 2).to(torch.int32)
 
 
 def build_flight_tables(
@@ -217,11 +255,15 @@ def flight_step_reference(
     weight_floor: float, max_iters: int, max_tries: int,
     inline_scatter: bool = True, pair_switch: bool = False,
 ) -> FlightResult:
-    """The kernel's lock-step loop over all lanes, in PyTorch."""
+    """The kernel's lock-step loop over all lanes, in PyTorch. On a grid
+    in the windowed mode (:func:`window_z`) a flying lane whose unclipped
+    zone id lies outside its tile's window freezes with FLAG_WINDOW
+    (flight_pallas2.py:437-446)."""
     n = e.shape[0]
     dev = e.device
     f32, i32 = torch.float32, torch.int32
     nzr = nz * nr
+    win_z = window_z(nz, nr)
     n_vol = tables.sig.shape[1]
     n_gg = tables.kgg.shape[1]
     num_nt = tables.cdf.shape[1]
@@ -252,6 +294,9 @@ def flight_step_reference(
     iglog = torch.full((n_log, K_LOG), -1, dtype=i32, device=dev)
     delog = torch.zeros((n_log, K_LOG), dtype=f32, device=dev)
     where = torch.where
+    if win_z:
+        win0 = (window_base(jz, kr, alive == 1, dcen, nz, nr, win_z)
+                * win_z)[slot // TILE]
 
     it = 0
     while it < max_iters:
@@ -261,6 +306,14 @@ def flight_step_reference(
         in_b = live & (mode == MODE_SCT_B)
         if not bool(torch.any(fly | in_a | in_b)):
             break
+        if win_z:
+            # a flying lane outside its tile's window freezes; the test
+            # reads the unclipped zone id, as the kernel does
+            lz = jz * nr + kr - win0
+            oow = fly & ((lz < 0) | (lz >= 2 * win_z))
+            flag = where(oow, FLAG_WINDOW, flag)
+            fly = fly & ~oow
+
         def rnd(draw):
             return u01(seed_u, lane_mix, it, draw)
 
@@ -569,7 +622,7 @@ def build() -> float:
         lib = ctypes.CDLL(str(path))
         lib.flight_launch.argtypes = (
             [ctypes.c_void_p, ctypes.c_int]
-            + [ctypes.c_int] * 10
+            + [ctypes.c_int] * 11
             + [ctypes.c_float] * 8
             + [ctypes.c_void_p]
         )
@@ -578,6 +631,13 @@ def build() -> float:
         lib.flight_threads_per_block.restype = ctypes.c_int
         _lib = lib
     return time.perf_counter() - t0
+
+
+def threads_per_block() -> int:
+    """Threads of one kernel block: the slots of one tally partial."""
+    if _lib is None:
+        build()
+    return _lib.flight_threads_per_block()
 
 
 def _check(t: torch.Tensor, name: str, dtype, shape, device):
@@ -591,6 +651,27 @@ def _check(t: torch.Tensor, name: str, dtype, shape, device):
         raise ValueError(f"{name}: not contiguous")
 
 
+def _recombine_windows(part, base, win_z: int, nzr: int) -> torch.Tensor:
+    """(2, nzr) tally from the windowed mode's per-block partials
+    (n_blocks, 2, 2*win_z): each tile's blocks are added in block order,
+    then the tiles' windows at zone base * win_z + j by a deterministic
+    segment sum (no float atomics)."""
+    from compton2d_tpu_torch.transport.tracking import segment_sum
+
+    tw = 2 * win_z
+    n_tiles = base.shape[0]
+    part = part.reshape(n_tiles, -1, 2, tw)
+    acc = part[:, 0]
+    for b in range(1, part.shape[1]):
+        acc = acc + part[:, b]
+    loc = (base.long()[:, None] * win_z
+           + torch.arange(tw, device=base.device)[None, :])
+    n_seg = (-(-nzr // win_z) + 1) * win_z
+    tally = segment_sum(acc.transpose(1, 2).reshape(-1, 2), loc.reshape(-1),
+                        n_seg)
+    return tally[:nzr].t().contiguous()
+
+
 def flight_step(
     e, w, w0, r, z, mu, cphi, sphi, dcen, jz, kr, alive,
     tables: FlightTables, seeds, *, nz: int, nr: int,
@@ -599,8 +680,10 @@ def flight_step(
 ) -> FlightResult:
     """One kernel entry over all photon slots. CPU tensors run
     :func:`flight_step_reference`; CUDA tensors launch ``csrc/flight.cu``
-    (built at first use) or raise."""
-    global LAUNCHES, STRAT_LAUNCHES, PAIR_LAUNCHES
+    (built at first use) or raise. A grid above MAX_ZONES runs the
+    windowed mode (:func:`window_z`); its per-tile window tallies are
+    recombined here in a fixed order."""
+    global LAUNCHES, STRAT_LAUNCHES, PAIR_LAUNCHES, WINDOW_LAUNCHES
     kw = dict(nz=nz, nr=nr, weight_floor=weight_floor,
               max_iters=max_iters, max_tries=max_tries,
               inline_scatter=inline_scatter, pair_switch=pair_switch)
@@ -618,8 +701,7 @@ def flight_step(
     num_nt = tables.cdf.shape[1]
     if n % TILE:
         raise ValueError(f"n_slots={n} must be a multiple of {TILE}")
-    if nzr > MAX_ZONES:
-        raise ValueError(f"nz*nr={nzr} exceeds the kernel's {MAX_ZONES}")
+    win_z = window_z(nz, nr)
     if num_nt < 2 or n_vol < 2 or n_gg < 2:
         raise ValueError("tables need at least 2 energy and gamma bins")
     dev = e.device
@@ -640,15 +722,17 @@ def flight_step(
     _check(tables.gm1, "gm1", f32, (num_nt - 1,), dev)
     _check(tables.r_edges, "r_edges", f32, (nr + 1,), dev)
     _check(tables.z_edges, "z_edges", f32, (nz + 1,), dev)
-    if _lib is None:
-        build()
-    threads = _lib.flight_threads_per_block()
+    threads = threads_per_block()
     alive_i = alive.to(i32)
+    # the windowed mode's base blocks; the resident mode reads none
+    base = (window_base(jz, kr, alive, dcen, nz, nr, win_z) if win_z
+            else torch.zeros(n // TILE, dtype=i32, device=dev))
 
     def emp(dtype, *shape):
         return torch.empty(shape, dtype=dtype, device=dev)
 
     n_log = n if inline_scatter else 0
+    tally_w = 2 * win_z if win_z else nzr
 
     outs = dict(
         e=emp(f32, n), w=emp(f32, n), r=emp(f32, n), z=emp(f32, n),
@@ -657,11 +741,11 @@ def flight_step(
         alive=emp(i32, n), mode=emp(i32, n), flag=emp(i32, n),
         jn=emp(i32, n), kn=emp(i32, n), it=emp(i32, n),
         ekill=emp(f32, n), esct=emp(f32, n), epair=emp(f32, n),
-        cnt=emp(i32, n), tally=emp(f32, n // threads, 2, nzr),
+        cnt=emp(i32, n), tally=emp(f32, n // threads, 2, tally_w),
         iglog=emp(i32, n_log, K_LOG), delog=emp(f32, n_log, K_LOG),
     )
     ptrs = [t.data_ptr() for t in (
-        e, w, w0, r, z, mu, cphi, sphi, dcen, jz, kr, alive_i, seeds,
+        e, w, w0, r, z, mu, cphi, sphi, dcen, jz, kr, alive_i, seeds, base,
         tables.sig, tables.kap, tables.kgg, tables.cdf, tables.guide,
         tables.gm1, tables.r_edges, tables.z_edges,
     )] + [t.data_ptr() for t in outs.values()]
@@ -670,7 +754,7 @@ def flight_step(
     rc = _lib.flight_launch(
         arr, len(ptrs), n, nz, nr, n_vol, n_gg, num_nt, int(max_iters),
         int(max_tries), int(bool(inline_scatter)), int(bool(pair_switch)),
-        tables.e_ph_log0, tables.e_ph_dlog,
+        int(win_z), tables.e_ph_log0, tables.e_ph_dlog,
         float(np.float32(n_vol - 1.000001)), tables.e_gg_log0,
         tables.e_gg_dlog, float(np.float32(n_gg - 1.000001)), tables.e_gg0,
         float(np.float32(weight_floor)), stream,
@@ -683,6 +767,11 @@ def flight_step(
         STRAT_LAUNCHES += 1
     if pair_switch:
         PAIR_LAUNCHES += 1
+    if win_z:
+        WINDOW_LAUNCHES += 1
+        tally = _recombine_windows(outs["tally"], base, win_z, nzr)
+    else:
+        tally = torch.sum(outs["tally"], dim=0)
     o = outs
     return FlightResult(
         e=o["e"], w=o["w"], r=o["r"], z=o["z"], mu=o["mu"],
@@ -691,6 +780,6 @@ def flight_step(
         jn=o["jn"], kn=o["kn"], it_used=int(o["it"].max()),
         ekill=torch.sum(o["ekill"]), esct=torch.sum(o["esct"]),
         epair=torch.sum(o["epair"]), sct_cnt=o["cnt"],
-        tally=torch.sum(o["tally"], dim=0), iglog=o["iglog"],
+        tally=tally, iglog=o["iglog"],
         delog=o["delog"],
     )

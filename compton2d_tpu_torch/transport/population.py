@@ -1,11 +1,13 @@
-"""Census population control: weight-window Russian roulette
-(counterpart of ``compton2d_tpu.transport.population.census_roulette``).
+"""Census population control (counterpart of
+``compton2d_tpu.transport.population``).
 
-When alive-slot occupancy exceeds ``hi`` (or the free slots cannot hold
-this step's emission), pick the roulette weight ``wc`` for which the
-expected survivor count is the target; each photon survives with
-probability min(1, w/wc) at weight max(w, wc). The realized energy delta
-is returned so the audit stays exact.
+:func:`census_roulette` is the weight-window Russian roulette: when
+alive-slot occupancy exceeds ``hi`` (or the free slots cannot hold this
+step's emission), pick the roulette weight ``wc`` for which the expected
+survivor count is the target; each photon survives with probability
+min(1, w/wc) at weight max(w, wc). The realized energy delta is returned
+so the audit stays exact. :func:`zone_sort` orders the slots by zone
+bucket for the flight kernel's windowed mode.
 """
 from __future__ import annotations
 
@@ -27,6 +29,25 @@ def _roulette_weight(w, alive, target):
         more = cnt > target
         lo, hi = torch.where(more, mid, lo), torch.where(more, hi, mid)
     return torch.sqrt(lo * hi)
+
+
+def zone_sort(photons: PhotonArray, nz: int, nr: int,
+              bucket_z: int) -> PhotonArray:
+    """Stable sort of the photon slots by zone bucket ``zid // bucket_z``
+    with the dead slots in a last bucket, so that the flight kernel's
+    1024-slot tiles are zone-coherent (its windowed mode gives each tile a
+    2 * bucket_z-zone window) and emission fills the free tail in zone
+    order. The reference builds the same permutation from one-hot
+    cumsums; here it is one stable argsort."""
+    nzr = nz * nr
+    n_b = -(-nzr // bucket_z) + 1
+    zid = (torch.clamp(photons.jz, 0, nz - 1) * nr
+           + torch.clamp(photons.kr, 0, nr - 1))
+    bucket = torch.where(photons.alive,
+                         torch.div(zid, bucket_z, rounding_mode="floor"),
+                         n_b - 1)
+    src = torch.argsort(bucket, stable=True)
+    return PhotonArray(*(a[src] for a in photons))
 
 
 def census_roulette(photons: PhotonArray, u: torch.Tensor,

@@ -192,7 +192,10 @@ def transport_step(
     of the flight kernel with the leaks (and, under stratified splitting,
     the scatters) handled between rounds. The rounds stop once the
     accumulated kernel iterations reach max_iters, so flight iterations
-    are bounded by 2*max_iters; stragglers go to census as they are."""
+    are bounded by 2*max_iters; stragglers go to census as they are.
+    Grids above flight.MAX_ZONES run the kernel's windowed mode: a lane
+    frozen with FLAG_WINDOW keeps its state and flies on in the next
+    round, under its tile's new window."""
     n = photons.n_slots
     num_nt = ctx.cdf_nt.shape[1]
     inline = not st.strat_split
@@ -225,6 +228,8 @@ def transport_step(
             e_killed=tl.e_killed + res.ekill,
             e_scatter=tl.e_scatter + res.esct,
             e_pair_abs=tl.e_pair_abs + res.epair,
+            n_window=tl.n_window + torch.sum(res.flag == flight.FLAG_WINDOW,
+                                             dtype=torch.int32),
         )
         if inline:
             # e_ic / n_esp from the per-lane event logs; events past K_LOG
@@ -258,7 +263,11 @@ def transport_step(
                         scat_seed, int(st.max_scatter_tries)), ctx, st)
         rnd += 1
         it_tot += res.it_used
-    tl = tl._replace(trk_rounds=tl.trk_rounds + rnd)
+    tl = tl._replace(
+        trk_rounds=tl.trk_rounds + rnd,
+        n_straggler=tl.n_straggler + torch.sum(ph.alive & (ph.dcen > 0.0),
+                                               dtype=torch.int32),
+    )
     ph = ph._replace(dcen=torch.where(ph.alive, 0.0, ph.dcen))
     return ph, tl, ev
 

@@ -1,5 +1,6 @@
 """The flight kernel, in its inline-scatter and strat modes, with and
-without pair_switch, against its plain PyTorch version on a CUDA card.
+without pair_switch, and in its windowed mode above 1024 zones, against
+its plain PyTorch version on a CUDA card.
 
 These tests need the card and skip without one. They import neither jax
 nor the JAX package, so they also run on a machine without jax:
@@ -12,7 +13,8 @@ import torch
 
 from compton2d_tpu_torch.physics.electron_dist import gnt_grid
 from compton2d_tpu_torch.tables import e_field_grid, e_gg_grid
-from compton2d_tpu_torch.transport import flight
+from compton2d_tpu_torch.state import PhotonArray
+from compton2d_tpu_torch.transport import flight, population
 
 torch.set_num_threads(2)
 pytestmark = pytest.mark.cuda
@@ -31,9 +33,9 @@ def card():
     return torch.device("cuda")
 
 
-def _inputs(dev, seed=0, pairs=False):
+def _inputs(dev, seed=0, pairs=False, nz=NZ, nr=NR):
     rng = np.random.default_rng(seed)
-    nzr = NZ * NR
+    nzr = nz * nr
     e_ph = e_field_grid(N_VOL).astype(np.float32)
     gnt = gnt_grid(NUM_NT).astype(np.float32)
     opac = np.stack([
@@ -49,19 +51,19 @@ def _inputs(dev, seed=0, pairs=False):
     e_gg = e_gg_grid(N_GG).astype(np.float32)
     kgg = rng.uniform(0.5, 3.0, (nzr, 1)) * np.linspace(0.1, 1.0, N_GG)
     tables = flight.build_flight_tables(
-        t(opac), t(cdf), t(gnt), t(np.linspace(0, 1, NR + 1)),
-        t(np.linspace(0, 1, NZ + 1)), float(np.log(e_ph[0])),
+        t(opac), t(cdf), t(gnt), t(np.linspace(0, 1, nr + 1)),
+        t(np.linspace(0, 1, nz + 1)), float(np.log(e_ph[0])),
         float(np.log(e_ph[1] / e_ph[0])), kgg_zone=t(kgg),
         e_gg_log0=float(np.log(e_gg[0])),
         e_gg_dlog=float(np.log(e_gg[1] / e_gg[0])))
-    jz, kr = rng.integers(0, NZ, N), rng.integers(0, NR, N)
+    jz, kr = rng.integers(0, nz, N), rng.integers(0, nr, N)
     # pairs: 10 keV to 10 MeV, across the e_gg grid and 47 keV
     log_e = rng.uniform(1, 4, N) if pairs else rng.uniform(-2, 2, N)
     phi = rng.uniform(0, 2 * np.pi, N)
     ph = dict(
         e=t(10.0 ** log_e), w=t(np.ones(N)),
-        w0=t(np.ones(N)), r=t((kr + rng.uniform(0.01, 0.99, N)) / NR),
-        z=t((jz + rng.uniform(0.01, 0.99, N)) / NZ),
+        w0=t(np.ones(N)), r=t((kr + rng.uniform(0.01, 0.99, N)) / nr),
+        z=t((jz + rng.uniform(0.01, 0.99, N)) / nz),
         mu=t(rng.uniform(-1, 1, N)), cphi=t(np.cos(phi)),
         sphi=t(np.sin(phi)), dcen=t(rng.uniform(0.05, 0.5, N)),
         jz=t(jz, torch.int32), kr=t(kr, torch.int32),
@@ -70,8 +72,9 @@ def _inputs(dev, seed=0, pairs=False):
     return [ph[k] for k in FIELDS], tables, seeds
 
 
-def _run(fn, args, tables, seeds, max_iters, inline=True, pairs=False):
-    return fn(*args, tables, seeds, nz=NZ, nr=NR, weight_floor=1e-10,
+def _run(fn, args, tables, seeds, max_iters, inline=True, pairs=False,
+         nz=NZ, nr=NR):
+    return fn(*args, tables, seeds, nz=nz, nr=nr, weight_floor=1e-10,
               max_iters=max_iters, max_tries=64, inline_scatter=inline,
               pair_switch=pairs)
 
@@ -167,5 +170,42 @@ def test_pair_mode_lane_for_lane_and_repeatable(card, inline):
     assert float(p.epair) > 0.01 * N
     torch.testing.assert_close(k.epair, p.epair, rtol=1e-3, atol=1e-3 * N)
     k2 = _run(flight.flight_step, args, tables, seeds, 64, inline, True)
+    for a, b in zip(k, k2):
+        assert torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b
+
+
+@pytest.mark.parametrize("inline", [True, False])
+def test_windowed_mode_lane_for_lane_and_repeatable(card, inline):
+    """40x30 zones (above 1024), 4 zone-sorted tiles, win_z = 128: one
+    iteration integers exact, FLAG_WINDOW lanes included, and floats rtol
+    1e-5; 64 iterations >= 99% identical lanes and edep within 1e-3 of
+    its largest zone; two launches bitwise equal; the windowed launch
+    count rises with every launch."""
+    nz, nr = 40, 30
+    win_z = flight.window_z(nz, nr)
+    assert win_z == flight.WIN_Z
+    args, tables, seeds = _inputs(card, seed=4, nz=nz, nr=nr)
+    args = list(population.zone_sort(PhotonArray(*args), nz, nr, win_z))
+    kw = dict(inline=inline, nz=nz, nr=nr)
+    before = flight.WINDOW_LAUNCHES
+    k = _run(flight.flight_step, args, tables, seeds, 1, **kw)
+    assert flight.WINDOW_LAUNCHES == before + 1
+    p = _run(flight.flight_step_reference, args, tables, seeds, 1, **kw)
+    for name in INTS:
+        assert torch.equal(getattr(k, name).long(),
+                           getattr(p, name).long()), name
+    for name in FLOATS:
+        torch.testing.assert_close(getattr(k, name), getattr(p, name),
+                                   rtol=1e-5, atol=1e-6)
+    assert int((k.flag == flight.FLAG_WINDOW).sum()) > 0
+    k = _run(flight.flight_step, args, tables, seeds, 64, **kw)
+    p = _run(flight.flight_step_reference, args, tables, seeds, 64, **kw)
+    same = torch.ones(N, dtype=torch.bool, device=card)
+    for name in INTS:
+        same &= getattr(k, name).long() == getattr(p, name).long()
+    assert float(same.float().mean()) >= 0.99
+    torch.testing.assert_close(k.tally[0], p.tally[0], rtol=1e-3,
+                               atol=1e-3 * float(p.tally[0].abs().max()))
+    k2 = _run(flight.flight_step, args, tables, seeds, 64, **kw)
     for a, b in zip(k, k2):
         assert torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b

@@ -123,7 +123,7 @@ def _window(nz, nr, tbb=0.5):
     dict(physics=dict(fp_include_coulomb=True)),
     dict(run=dict(adaptive_dt=True)),
     dict(physics=dict(flare=pcfg.FlareConfig(enabled=True))),
-    dict(grid=dict(nz=40, nr=30)),
+    dict(grid=dict(nz=128, nr=2)),
 ])
 def test_options_outside_the_slice_raise(change):
     grid = pcfg.GridConfig(**{"nz": 3, "nr": 2, **change.get("grid", {})})

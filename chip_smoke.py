@@ -7,13 +7,19 @@ Run from the repository root on a machine with a CUDA card::
 Phases (any failure raises and the script exits non-zero):
 
 1. card and build: the card's name and power limit, the torch / CUDA
-   versions, and the nvcc build of ``csrc/flight.cu`` for sm_90a;
+   versions, and the nvcc build of ``csrc/flight.cu`` for sm_90a with
+   ptxas's registers, stack and spills of each kernel instance;
 2. the flight kernel in its inline-scatter mode against its plain
    PyTorch version on the card, at the main path's shapes (131072 slots,
    8x4 zones, 400 energy and 200 gamma bins) with inputs made by numpy
-   from a seed: lane-for-lane agreement after one iteration (integers
-   exact, floats rtol 1e-5), >= 99% identical lanes after 256, bitwise
-   repeatability, and both times;
+   from a seed: the table placement (shared memory here) and the block
+   plan (threads a block, blocks per SM), lane-for-lane agreement after
+   one iteration (integers exact, floats rtol 1e-5), >= 99% identical
+   lanes after 256, bitwise repeatability, and the times: the kernel on
+   the device alone (CUDA events around 20 launches on preallocated
+   outputs), the wrapper-included call, the plain version, the bound,
+   and from the kernel's counters its SIMT efficiency (lane-iterations
+   over 32 x warp passes);
 2b. the same for the kernel's strat mode (collisions freeze with
    FLAG_SCATTER), at the Mrk 421 shapes (131072 slots, 10x4 zones, 400
    energy and 200 gamma bins), with 512 iterations;
@@ -31,7 +37,13 @@ Phases (any failure raises and the script exits non-zero):
    energy and 200 gamma bins) with the live slots zone-sorted by the
    port's ``zone_sort`` and the free tail refilled out of zone order, as
    on the path, with 256 iterations; it counts the FLAG_WINDOW lanes,
-   which must be above 0;
+   which must be above 0; its tables are read from global memory;
+2e. the same for the resident inline mode at 32x32 zones (1024, the
+   largest resident grid), 131072 slots and the main path's widths, whose
+   tables are too large for shared memory and are read from global
+   memory; the one-iteration tally check allows each zone 2^-22 of its
+   depositing weight, as 2d's (a 2-ulp exp difference of one lane moved
+   one zone's small net deposit by 2^-22 there);
 3. the main path: ``small_corona`` at the benchmark size with the FP
    solve on, 2 warm-up and 8 timed steps through ``Simulation.step()``,
    checking the kernel launches, device placement, the per-step energy
@@ -63,11 +75,18 @@ Phases (any failure raises and the script exits non-zero):
    tensor on the card, every step's energy audit, finite temperatures,
    escapes, bitwise-repeatable tallies (40x30), and per step the rounds,
    the FLAG_WINDOW freezes and the stragglers sent to census, with the
-   card's peak memory.
+   card's peak memory; then the 32x32 grid (the resident mode with its
+   tables in global memory) for 2 steps.
+
+The first five phases' launches of the path-shaped modes read their
+tables from shared memory (checked with the wrapper's count of
+global-table launches), the windowed and 32x32 ones from global memory.
 
 Each kernel's wrapper counts its launches; the counts are set to 0 just
 before each main path and read just after. The line before the last is a
-JSON summary of every kernel mode with its times and its roofline bound;
+JSON summary of every kernel mode with its times and its roofline bound
+(``ms`` is the wrapper-included call, as in every earlier version of this
+line; ``device_ms`` the kernel alone);
 the last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -107,6 +126,7 @@ TIMED_STEPS, WARM_STEPS = 8, 2
 # the large grid (large_corona) and the reference's windowed-test grid
 LARGE_NZ, LARGE_NR, LARGE_SLOTS, LARGE_NST = 99, 99, 1 << 19, 240000
 GRID_NZ, GRID_NR = 40, 30
+RESIDENT_NZ, RESIDENT_NR = 32, 32   # the largest resident grid
 LARGE_TIMED, LARGE_WARM, GRID_STEPS = 3, 1, 2
 AUDIT_TOL = 2e-3     # |balance - 1|, the JAX tests' bound
 MRK_AUDIT_TOL = 5e-3  # the bound of tests/test_mrk421.py
@@ -135,7 +155,7 @@ def log(msg: str) -> None:
 def reset_launches() -> None:
     """Set every kernel launch count of the flight wrapper to 0."""
     flight.LAUNCHES = flight.STRAT_LAUNCHES = flight.PAIR_LAUNCHES = 0
-    flight.WINDOW_LAUNCHES = 0
+    flight.WINDOW_LAUNCHES = flight.GLOBAL_LAUNCHES = 0
 
 
 def card_line() -> str:
@@ -272,7 +292,7 @@ def assert_sums_close(k, p, tol: float, e_scale: float, label: str,
     scale: the input energy for the energy sums, each zone's edep for
     edep, and c x edep for prdep, a signed sum of terms up to
     c x (absorbed energy) that cancels to a much smaller net value. With
-    ``w_zone`` (the windowed mode's 99x99 zones only), each zone's sum of
+    ``w_zone`` (grids of MAX_ZONES zones or more only), each zone's sum of
     the weights that deposit in it, edep and prdep may also differ by
     2^-22 of that weight (c x that for prdep): a deposit w - w exp(-x)
     inherits a last-bit difference of exp(-x) at w's own scale, which a
@@ -286,9 +306,16 @@ def assert_sums_close(k, p, tol: float, e_scale: float, label: str,
             msg=lambda m: f"{label} edep: {m}")
     else:
         err = torch.abs(ed_k - ed_p)
-        bound = (tol * torch.abs(ed_p)
-                 + tol * float(torch.max(torch.abs(ed_p)))
-                 + 2.0 ** -22 * w_zone)
+        strict = (tol * torch.abs(ed_p)
+                  + tol * float(torch.max(torch.abs(ed_p))))
+        bound = strict + 2.0 ** -22 * w_zone
+        over = err > strict
+        if bool(torch.any(over)):
+            i = int(torch.argmax(err - strict))
+            log(f"{label} edep: {int(over.sum())} zones over the rtol bound, "
+                f"the largest zone {i}: error {float(err[i]):.6e} against "
+                f"{float(strict[i]):.6e}, edep {float(ed_p[i]):.6e}, "
+                f"depositing weight {float(w_zone[i]):.6f}")
         if bool(torch.any(err > bound)):
             i = int(torch.argmax(err - bound))
             raise AssertionError(f"{label} edep: zone {i} error "
@@ -333,23 +360,56 @@ def lane_sensitivity(photons, tables, seeds, p, kw) -> dict:
     return sens
 
 
-def phase_kernel(device, label: str, nz: int, nr: int, inline: bool,
-                 max_iters: int, pairs: bool = False, **shapes) -> dict:
-    """One kernel mode against its plain version at (nz, nr) zones; with
-    ``pairs``, the pair mode at the ``shapes`` of kernel_inputs; above
-    1024 zones, the windowed mode on inputs zone-sorted as on the path."""
+def simt_efficiency(counters) -> float:
+    """Lane-iterations over 32 x the warp passes through the state
+    bodies, from the kernel's per-warp counters."""
+    c = counters.sum(dim=0, dtype=torch.int64).tolist()
+    return c[0] / (32.0 * (c[1] + c[2] + c[3]))
+
+
+def block_plan(tables, nz: int, nr: int, inline: bool, pairs: bool):
+    """The kernel's block plan for these inputs on card 0."""
+    return flight.plan_block(nz, nr, tables.sig.shape[1],
+                             tables.kgg.shape[1], tables.cdf.shape[1],
+                             inline, pairs)
+
+
+def path_inputs(device, nz: int, nr: int, **shapes):
+    """kernel_inputs as the path hands them over: above 1024 zones the
+    census zone-sorted, then its free tail refilled out of zone order, as
+    emission refills it on the path with boundary photons spread over the
+    grid (those tiles freeze lanes at once)."""
     photons, tables, seeds = kernel_inputs(device, nz, nr, **shapes)
     win_z = flight.window_z(nz, nr)
     if win_z:
-        # the census zone-sorted, then its free tail refilled out of zone
-        # order, as emission refills it on the path with boundary photons
-        # spread over the grid: those tiles freeze lanes at once
-        fields = PhotonArray._fields
         photons = population.zone_sort(
-            PhotonArray(*(photons[f] for f in fields)), nz, nr,
+            PhotonArray(*(photons[f] for f in PhotonArray._fields)), nz, nr,
             win_z)._asdict()
         photons["alive"] = torch.ones_like(photons["alive"])
+    return photons, tables, seeds
+
+
+def phase_kernel(device, label: str, nz: int, nr: int, inline: bool,
+                 max_iters: int, pairs: bool = False,
+                 placement: str = "shared", **shapes) -> dict:
+    """One kernel mode against its plain version at (nz, nr) zones; with
+    ``pairs``, the pair mode at the ``shapes`` of kernel_inputs; above
+    1024 zones, the windowed mode on inputs zone-sorted as on the path.
+    The tables must take ``placement``."""
+    photons, tables, seeds = path_inputs(device, nz, nr, **shapes)
     n = photons["e"].shape[0]
+    plan = block_plan(tables, nz, nr, inline, pairs)
+    staged = flight.table_placement(
+        nz, nr, tables.sig.shape[1], tables.kgg.shape[1],
+        tables.cdf.shape[1], inline, pairs)
+    if staged[0] != placement or plan.shared != (placement == "shared"):
+        raise AssertionError(f"{label}: tables {staged}, expected "
+                             f"{placement}")
+    log(f"{label}: tables in {staged[0]} memory ({staged[1]} bytes read "
+        f"by the mode), {plan.per_sm} blocks of {plan.threads} threads per "
+        f"SM, {n // plan.threads} blocks, {plan.smem} bytes of shared "
+        f"memory")
+    win_z = flight.window_z(nz, nr)
     e_scale = float(torch.sum(photons["w"]))   # total input energy
     kw = dict(nz=nz, nr=nr, inline=inline, pairs=pairs)
 
@@ -393,10 +453,14 @@ def phase_kernel(device, label: str, nz: int, nr: int, inline: bool,
                     f"10x their sensitivity, max {float(err.max()):.3e}")
             n_over = max(n_over, n_f)
         max_abs = max(max_abs, float(torch.max(err)))
-    # the windowed mode's 99x99 zones: each zone's depositing weight
-    # (in one iteration each live lane deposits in its own zone only)
+    # grids of MAX_ZONES zones or more (the 32x32 resident grid, the
+    # windowed mode's 99x99): each zone's depositing weight (in one
+    # iteration each live lane deposits in its own zone only). With about
+    # 128 lanes a zone, a 2-ulp difference of one lane's exp(-x) shows in
+    # a zone's small net deposit (assert_sums_close logs the zones that
+    # need the allowance)
     w_zone = None
-    if win_z:
+    if nz * nr >= flight.MAX_ZONES:
         live = photons["alive"] & (photons["dcen"] > 0.0)
         zid = (torch.clamp(photons["jz"], 0, nz - 1) * nr
                + torch.clamp(photons["kr"], 0, nr - 1))
@@ -445,8 +509,9 @@ def phase_kernel(device, label: str, nz: int, nr: int, inline: bool,
         raise AssertionError(f"{label} (c) two kernel launches differ")
     log(f"{label} (c) two launches bitwise equal")
 
-    # (d) times at the path's budget: medians after a warm-up, each call
-    # synchronised (the wrapper included)
+    # (d) times at the path's budget: the kernel on the device alone
+    # (events_ms), and medians after a warm-up of calls synchronised each
+    # (the wrapper included: the ``ms`` of every earlier version)
     def timed(fn, reps):
         run_flight(fn, photons, tables, seeds, max_iters, **kw)
         ts = []
@@ -459,15 +524,40 @@ def phase_kernel(device, label: str, nz: int, nr: int, inline: bool,
         return statistics.median(ts)
 
     plain_ms = timed(flight.flight_step_reference, 3)
-    ms = timed(flight.flight_step, 20)
+    wrapped_ms = timed(flight.flight_step, 20)
+    launch = run_flight(flight.launch_only, photons, tables, seeds, max_iters,
+                        **kw)
+    device_ms = events_ms(launch)
     bound = flight_bound(photons, tables, k, nz, nr, pairs)
-    log(f"{label} (d) kernel {ms:.4f} ms, plain torch {plain_ms:.4f} ms "
-        f"(median, {n} slots, {nz}x{nr} zones, max_iters="
+    log(f"{label} (d) kernel {device_ms:.4f} ms on the device alone, "
+        f"{wrapped_ms:.4f} ms with the wrapper, plain torch "
+        f"{plain_ms:.4f} ms ({n} slots, {nz}x{nr} zones, max_iters="
         f"{max_iters}); bound {bound['bound_ms']:.6f} ms by "
         f"{bound['bound_by']} ({bound['bytes']} bytes, {bound['ops']} "
-        f"operations)")
-    return {"max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms,
+        f"operations); SIMT efficiency {simt_efficiency(k.counters):.4f} "
+        f"(lane-iterations {int(k.counters[:, 0].sum())})")
+    return {"max_abs_err": max_abs, "ms": wrapped_ms,
+            "device_ms": device_ms, "plain_ms": plain_ms,
             "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"]}
+
+
+DEVICE_REPS = 20
+
+
+def events_ms(launch) -> float:
+    """The kernel's own time: CUDA events around DEVICE_REPS launches on
+    preallocated outputs (a ``launch_only`` hook), after one warm-up
+    launch, per launch."""
+    launch()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(DEVICE_REPS):
+        launch()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / DEVICE_REPS
 
 
 # ---------------------------------------------------------------------------
@@ -522,9 +612,10 @@ def phase_main_path(device, card: str) -> int:
     launches = flight.LAUNCHES
     if launches <= 0:
         raise AssertionError("the main path launched no flight kernel")
-    if flight.STRAT_LAUNCHES or flight.PAIR_LAUNCHES or flight.WINDOW_LAUNCHES:
+    if (flight.STRAT_LAUNCHES or flight.PAIR_LAUNCHES or flight.WINDOW_LAUNCHES
+            or flight.GLOBAL_LAUNCHES):
         raise AssertionError("small_corona launched the strat, pair or "
-                             "windowed mode")
+                             "windowed mode, or read global tables")
     log(f"main path: {launches} flight kernel launches in "
         f"{WARM_STEPS + TIMED_STEPS} steps")
 
@@ -642,11 +733,12 @@ def phase_mrk421(device, card: str) -> int:
         if not done:
             raise AssertionError("run_to_stop did not reach t_stop")
         if (launches <= 0 or flight.LAUNCHES or flight.PAIR_LAUNCHES
-                or flight.WINDOW_LAUNCHES):
+                or flight.WINDOW_LAUNCHES or flight.GLOBAL_LAUNCHES):
             raise AssertionError(f"strat launches {launches}, inline "
                                  f"launches {flight.LAUNCHES}, pair "
                                  f"launches {flight.PAIR_LAUNCHES}, windowed "
-                                 f"launches {flight.WINDOW_LAUNCHES}")
+                                 f"launches {flight.WINDOW_LAUNCHES}, global-"
+                                 f"table launches {flight.GLOBAL_LAUNCHES}")
         if counts["frozen"] <= 0 or counts["copies"] <= 0:
             raise AssertionError(f"scatter counts {counts}")
         devs = state_devices(sim.state)
@@ -795,10 +887,13 @@ def phase_pairs(device, card: str) -> Tuple[int, int]:
         if launches <= 0 or launches != flight.LAUNCHES:
             raise AssertionError(f"pair launches {launches}, inline "
                                  f"launches {flight.LAUNCHES}")
-        if flight.STRAT_LAUNCHES or flight.WINDOW_LAUNCHES or plain_runs[0]:
+        if (flight.STRAT_LAUNCHES or flight.WINDOW_LAUNCHES
+                or flight.GLOBAL_LAUNCHES or plain_runs[0]):
             raise AssertionError(f"strat launches {flight.STRAT_LAUNCHES}, "
                                  f"windowed launches {flight.WINDOW_LAUNCHES}"
-                                 f", plain-version runs {plain_runs[0]}")
+                                 f", global-table launches "
+                                 f"{flight.GLOBAL_LAUNCHES}, plain-version "
+                                 f"runs {plain_runs[0]}")
         log(f"pair corona: {launches} pair-mode flight kernel launches in "
             f"{WARM_STEPS + PAIR_TIMED} steps, the plain version never ran")
         seen = audit_pair_steps(sim, warm + timed, "pair corona")
@@ -884,11 +979,11 @@ def phase_pairs_strat(device, card: str, plain_runs: list) -> int:
     launches = flight.STRAT_LAUNCHES
     if not (launches > 0 and flight.PAIR_LAUNCHES == launches
             and flight.LAUNCHES == 0 and flight.WINDOW_LAUNCHES == 0
-            and plain_runs[0] == 0):
+            and flight.GLOBAL_LAUNCHES == 0 and plain_runs[0] == 0):
         raise AssertionError(
             f"strat pair corona launches: strat {launches} pair "
-            f"{flight.PAIR_LAUNCHES} inline {flight.LAUNCHES} plain "
-            f"{plain_runs[0]}")
+            f"{flight.PAIR_LAUNCHES} inline {flight.LAUNCHES} global-table "
+            f"{flight.GLOBAL_LAUNCHES} plain {plain_runs[0]}")
     audit_pair_steps(sim, outs, "strat pair corona")
     taus += [thomson_depth(sim, state.zones) for _, state in outs]
     for i, (out, _) in enumerate(outs):
@@ -927,12 +1022,14 @@ def check_windowed_run(label: str, plain_runs: list) -> int:
     count."""
     launches = flight.WINDOW_LAUNCHES
     if not (launches > 0 and flight.LAUNCHES == launches
+            and flight.GLOBAL_LAUNCHES == launches
             and flight.STRAT_LAUNCHES == 0 and flight.PAIR_LAUNCHES == 0
             and plain_runs[0] == 0):
         raise AssertionError(
             f"{label} launches: windowed {launches} inline {flight.LAUNCHES}"
-            f" strat {flight.STRAT_LAUNCHES} pair {flight.PAIR_LAUNCHES} "
-            f"plain {plain_runs[0]}")
+            f" global-table {flight.GLOBAL_LAUNCHES} strat "
+            f"{flight.STRAT_LAUNCHES} pair {flight.PAIR_LAUNCHES} plain "
+            f"{plain_runs[0]}")
     return launches
 
 
@@ -967,10 +1064,12 @@ def per_step(outs, field: str) -> float:
     return sum(int(getattr(o.tallies, field)) for o in outs) / len(outs)
 
 
-def phase_large(device, card: str) -> int:
+def phase_large(device, card: str) -> Tuple[int, int]:
     """large_corona for LARGE_WARM + LARGE_TIMED steps, then the 40x30 grid
-    twice from the seed for GRID_STEPS steps; returns large_corona's
-    windowed launches."""
+    twice from the seed for GRID_STEPS steps, then the 32x32 grid (1024
+    zones, the resident mode with its tables in global memory) for
+    GRID_STEPS steps; returns large_corona's windowed launches and the
+    32x32 grid's launches."""
     plain_runs = [0]
     reference = flight.flight_step_reference
 
@@ -1022,9 +1121,27 @@ def phase_large(device, card: str) -> int:
             f"{per_step(outs, 'n_window'):.1f} FLAG_WINDOW freezes/step, "
             f"{per_step(outs, 'n_straggler'):.1f} stragglers/step; "
             f"tallies bitwise repeatable from the seed ({GRID_STEPS} steps)")
+        del sim, sim2, outs
+
+        # the largest resident grid, whose tables are read from global
+        # memory
+        reset_launches()
+        sim = bench_sim(device, nz=RESIDENT_NZ, nr=RESIDENT_NR)
+        outs, elapsed = drive_large(sim, 0, GRID_STEPS)
+        global_launches = flight.GLOBAL_LAUNCHES
+        if not (global_launches > 0 and flight.LAUNCHES == global_launches
+                and flight.WINDOW_LAUNCHES == 0 and plain_runs[0] == 0):
+            raise AssertionError(
+                f"grid 32x32 launches: global-table {global_launches} inline "
+                f"{flight.LAUNCHES} windowed {flight.WINDOW_LAUNCHES} plain "
+                f"{plain_runs[0]}")
+        audit_large_steps(sim, outs, "grid 32x32")
+        log(f"grid 32x32 on {card}: {1e3 * elapsed / GRID_STEPS:.3f} "
+            f"ms/step, {per_step(outs, 'trk_rounds'):.2f} rounds/step, "
+            f"{global_launches} resident launches with global tables")
     finally:
         flight.flight_step_reference = reference
-    return launches
+    return launches, global_launches
 
 
 def main() -> int:
@@ -1038,6 +1155,7 @@ def main() -> int:
         f"count {torch.cuda.device_count()}")
     build_s = flight.build()
     log(f"built {flight.library_path().name} in {build_s:.2f} s")
+    log(flight.ptxas_report())
 
     device = torch.device("cuda", 0)
     torch.cuda.set_device(device)
@@ -1052,11 +1170,13 @@ def main() -> int:
                                  n=PAIR_SLOTS, n_vol=PAIR_VOL,
                                  num_nt=PAIR_NT, n_gg=PAIR_GG)
     k_window = phase_kernel(device, "windowed kernel", LARGE_NZ, LARGE_NR,
-                            True, 256, n=LARGE_SLOTS)
+                            True, 256, placement="global", n=LARGE_SLOTS)
+    k_global = phase_kernel(device, "global-table kernel", RESIDENT_NZ,
+                            RESIDENT_NR, True, 256, placement="global")
     launches_inline = phase_main_path(device, card)
     launches_strat = phase_mrk421(device, card)
     launches_pairs, launches_pairs_strat = phase_pairs(device, card)
-    launches_window = phase_large(device, card)
+    launches_window, launches_global = phase_large(device, card)
 
     replaces = "compton2d_tpu/transport/flight_pallas2.py:347"
     log(json.dumps({"kernels": [
@@ -1080,6 +1200,10 @@ def main() -> int:
          "source": "compton2d_tpu_torch/csrc/flight.cu",
          "replaces": replaces, "launches": launches_window,
          "library_ms": None, **k_window},
+        {"name": "flight_kernel_global_tables", "route": "cuda",
+         "source": "compton2d_tpu_torch/csrc/flight.cu",
+         "replaces": replaces, "launches": launches_global,
+         "library_ms": None, **k_global},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -5,9 +5,8 @@
 // its resident-table modes (the Pallas call at flight_pallas2.py:1124) and
 // its windowed mode (the call at :1077), selected at run time by
 // `inline_scatter`:
-//   1  (inline scatter) each thread owns one photon slot and runs the
-//      per-lane state machine FLY -> SCT_A -> SCT_B -> FLY until census,
-//      leak, weight kill or max_iters;
+//   1  (inline scatter) each lane runs the state machine FLY -> SCT_A ->
+//      SCT_B -> FLY until census, leak, weight kill or max_iters;
 //   0  (stratified splitting) a collision freezes the lane with
 //      FLAG_SCATTER after the move, as a leak does, so that the caller's
 //      stratified sampler places the tail copies (flight_pallas2.py:
@@ -23,11 +22,10 @@
 //   W  grids above 1024 zones (nz, nr <= 127): each 1024-slot tile owns
 //      the 2W-zone window that starts at zone base[tile] * W. At the top
 //      of each iteration a FLY lane whose unclipped zone id lies outside
-//      it freezes with FLAG_WINDOW for the caller's next round (flight_
-//      pallas2.py:437-446); SCT lanes go on. The tallies are kept per
-//      window (n_blocks, 2, 2W) and the wrapper adds them at base * W + j.
-//      The tables stay in global memory and are read by global zone id:
-//      the Pallas kernel's window copies of them are VMEM workarounds.
+//      it freezes with FLAG_WINDOW for the caller's next round
+//      (flight_pallas2.py:437-446); SCT lanes go on. The tallies are kept
+//      per block window, (n / threads, 2, 2W), and the wrapper adds them
+//      at base * W + j.
 // The states:
 //   FLY   optical-depth draw, log-linear sigma/kappa (and kgg) lookup,
 //         distance to the next r-shell / z-plane, event select, continuous
@@ -39,36 +37,72 @@
 //         the last candidate at max_tries;
 //   SCT_B sz rejection, boost, azimuth, w *= E'/E, event log (K_LOG deep).
 //
-// What bounds it on the H100: divergent, latency-bound reads of the zone
-// tables (sigma/kappa/kgg rows, CDF, guide) and the per-lane branchy state
-// machine. It does few FLOPs per byte and is not limited by bandwidth or
-// arithmetic. The tables are read straight from global memory in their
-// natural layout (they stay in L2); the TPU's (rows, 128) layout and
-// chunk sweeps are Mosaic workarounds with no counterpart here.
+// What bounds it on the H100. Not bytes and not arithmetic: at the main
+// path's shapes the function moves 25 MB and does about 0.06 GFLOP, a
+// bound of 7.6 us, while a launch takes about 200 us. It is latency along
+// a serial chain: a warp runs as long as its longest-lived lane needs for
+// its iterations one after another (58 at the main path's inputs, 93 in
+// the pair mode, 66 in the windowed mode), and each iteration is a chain
+// of dependent table reads by zone id and unfused IEEE logf / expf /
+// sqrtf / divisions. What helps is a shorter iteration and as many lanes
+// in flight per SM as the registers allow (1024 at 64 registers).
 //
-// Determinism: per-zone tallies are reduced in a fixed order. Each warp
-// runs its lanes in lock step (the TPU tile's lock step, per warp); every
-// iteration the lanes that deposit in the same zone are summed in lane
-// order by the lowest such lane into the warp's own shared-memory row, and
-// at exit the block adds its warps' rows in warp order into a per-block
-// partial (n_blocks, 2, nzr) that the wrapper sums with torch.sum (in the
-// windowed mode, a window partial that the wrapper adds in block order and
-// then by a sorted segment sum). No float atomics are used, so equal inputs
-// give bitwise-equal outputs.
+// The design:
+// - One thread per slot in lock step within its warp, the state in
+//   registers, as the first version of this kernel. About 12% of the
+//   lanes a warp issues do work at the main path's inputs (10% in the
+//   pair mode), yet they cost little: a warp's diverged state bodies
+//   overlap their latencies under independent thread scheduling. A
+//   design that regrouped the live photons of persistent blocks into
+//   per-state queues every 4 iterations raised that share to 25-46% but
+//   was slower than this kernel on the main path and in four of the six
+//   path shapes (NVIDIA H100 80GB HBM3, 700 W; compare_flight.py, PERF.md
+//   §6): each regrouping adds a load, a store, a partition and a
+//   barrier, and its 80-101 registers halved the lanes in flight.
+// - Packed tables (flight.build_flight_tables): one byte buffer holding
+//   sigma and kappa interleaved per energy bin, so that a lerp reads two
+//   float2; kgg; the r and z edges; the CDF; the guide as uint16;
+//   gamma-1. Each section starts on 16 bytes.
+// - Tables in shared memory. When the sections a mode reads fit beside a
+//   1024-thread block's tallies (flight.table_placement, a function of the
+//   shapes), thread 0 starts one 1-D bulk copy (TMA) per section onto an
+//   mbarrier while the block loads its photons, and every table read is
+//   ld.shared (the <true> instance). Otherwise (grids of many zones, the
+//   windowed mode) the same layout is read from global memory through the
+//   read-only path (<false>). The strat modes stage no scatter tables.
+// - Block size. The wrapper picks 128 to 1024 threads a block from the
+//   occupancy the build reports (flight_occupancy): the size that keeps
+//   the most warps resident, the smaller on a tie. The main path's
+//   178,544 bytes of shared memory (161,620 of tables) leave room for one
+//   block per SM, so it and Mrk 421 run 1024-thread blocks, the pair
+//   corona 4 blocks of 256, its strat variant and global tables 8 of 128
+//   (6 on the 32x32 grid, whose per-warp tallies take 8 KB a warp).
+// Registers (ptxas -v, sm_90a): 64 in both instances, no spills, 32 bytes
+// of stack; __launch_bounds__(1024) caps a thread at 64, so an SM holds
+// 32 warps, 1024 lanes in flight, in every mode but the 32x32 grid's.
 //
-// Random numbers: the counter hash of the Pallas interpret mode
+// Random numbers: the reference's interpret-mode counter hash
 // (flight_pallas2.py:114-140), keyed by (tile seed, iteration, draw, lane)
 // with lane = slot % 1024, so the plain PyTorch version in
 // transport/flight.py draws the same numbers lane for lane.
+//
+// Determinism: per-zone tallies are reduced in a fixed order. Within a
+// warp, the lanes that deposit in the same zone in one iteration are
+// summed in lane order by the lowest such lane into the warp's own
+// shared-memory row; at exit the block adds its warps' rows in warp order
+// into its partial, (n / threads, 2, nzr) or (n / threads, 2, 2W), which
+// the wrapper sums. No float atomics, so equal inputs give bitwise-equal
+// outputs.
+//
+// Counters: each warp writes its lane-iterations (lanes that ran an
+// iteration) and its passes through the FLY, SCT_A and SCT_B bodies
+// (iterations in which any of its lanes ran that body), (n / 32, 4) int32,
+// from which chip_smoke.py prints the SIMT efficiency.
 //
 // Numerics follow the Pallas kernel: f32 throughout, the same clamps and
 // floors, the 7-term KN series for zn <= 0.15, and the tiny_abs branch.
 // Build without fast math and with -fmad=false so each operation rounds
 // as the plain version's does.
-//
-// This first version is simple on purpose: one thread per slot, tables in
-// global memory, no persistent blocks. (The caller zone-sorts the slots
-// for the windowed mode, so that a tile's lanes share a window.)
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -80,8 +114,8 @@ constexpr int TILE = 1024;
 constexpr int K_LOG = 8;
 constexpr int SCAN_S = 4;
 constexpr int GUIDE_G = 512;
-constexpr int WARPS = 4;
-constexpr int THREADS = WARPS * 32;
+constexpr int MAX_THREADS = 1024;    // threads of the largest block
+constexpr int SMEM_MAX = 232448;     // dynamic shared memory of one block
 constexpr unsigned FULL = 0xffffffffu;
 
 constexpr int FLAG_NONE = 0;
@@ -91,6 +125,17 @@ constexpr int FLAG_WINDOW = 3;
 constexpr int MODE_FLY = 0;
 constexpr int MODE_SCT_A = 1;
 constexpr int MODE_SCT_B = 2;
+
+// sections of the packed tables
+constexpr int SEC_OPAC = 0;          // (nzr, n_vol) float2 [sigma, kappa]
+constexpr int SEC_KGG = 1;           // (nzr, n_gg) f32
+constexpr int SEC_EDGES = 2;         // r edges (nr + 1), then z edges
+constexpr int SEC_CDF = 3;           // (nzr, num_nt) f32
+constexpr int SEC_GUIDE = 4;         // (nzr, GUIDE_G) uint16
+constexpr int SEC_GM1 = 5;           // (num_nt - 1,) f32
+constexpr int N_SEC = 6;
+// per-warp counters: lane-iterations, passes through each state body
+constexpr int N_COUNT = 4;
 
 // f32 values of the Pallas kernel's Python constants
 constexpr float CLAMP = 1.0f;                  // f32(0.99999999)
@@ -109,33 +154,31 @@ struct Pointers {
   // photon SoA in
   const float* e; const float* w; const float* w0; const float* r;
   const float* z; const float* mu; const float* cphi; const float* sphi;
-  const float* dcen; const int* jz; const int* kr; const int* alive;
+  const float* dcen; const int* jz; const int* kr; const uint8_t* alive;
   const int* seeds;
-  const int* base;     // (n / TILE,) window base blocks (win_z > 0)
-  // zone tables (natural layout)
-  const float* sig;    // (nzr, n_vol)
-  const float* kap;    // (nzr, n_vol)
-  const float* kgg;    // (nzr, n_gg)
-  const float* cdf;    // (nzr, num_nt)
-  const int* guide;    // (nzr, GUIDE_G)
-  const float* gm1;    // (num_nt - 1,)
-  const float* redges; // (nr + 1,)
-  const float* zedges; // (nz + 1,)
+  const int* base;              // (n / TILE,) window base blocks (win_z > 0)
+  const unsigned char* tables;  // the packed tables
   // outputs
   float* e_o; float* w_o; float* r_o; float* z_o; float* mu_o;
   float* cphi_o; float* sphi_o; float* dcen_o;
-  int* jz_o; int* kr_o; int* alive_o; int* mode_o; int* flag_o;
+  int* jz_o; int* kr_o; uint8_t* alive_o; int* mode_o; int* flag_o;
   int* jn_o; int* kn_o; int* it_o;
   float* ekill_o; float* esct_o; float* epair_o; int* cnt_o;
-  float* tally_part;   // (n_blocks, 2, nzr), or (n_blocks, 2, 2 win_z)
+  float* tally_part;   // (n / threads, 2, nzr), or (n / threads, 2, 2 win_z)
+  int* counters;       // (n / 32, N_COUNT)
   int* iglog;          // (n, K_LOG)
   float* delog;        // (n, K_LOG)
 };
-constexpr int N_POINTERS = 45;
 
 struct Scalars {
   int n, nz, nr, n_vol, n_gg, num_nt, max_iters, max_tries, inline_scatter,
       pair_switch, win_z;
+  int shared_tables;   // 1: the <true> instance, staged sections in smem
+  int threads, smem;   // threads and dynamic shared memory of a block
+  int sec_off[N_SEC];    // byte offset of each section in the tables
+  int sec_bytes[N_SEC];  // bytes of each section
+  int sec_smem[N_SEC];   // shared-memory offset of a staged section, or -1
+  int off_tally, off_stage, off_count, off_bar;
   float e_ph_log0, e_ph_dlog, x_ph_hi, e_gg_log0, e_gg_dlog, x_gg_hi, e_gg0,
       weight_floor;
 };
@@ -177,22 +220,84 @@ __device__ __forceinline__ int guide_cell(float u) {
   return clipi(j, 0, GUIDE_G - 1);
 }
 
-__global__ void __launch_bounds__(THREADS)
-flight_kernel(Pointers p, Scalars s) {
-  extern __shared__ float smem[];
-  const int nzr = s.nz * s.nr;
-  const int tw = s.win_z ? 2 * s.win_z : nzr;            // tally width
-  float* wtally = smem;                                  // [WARPS][2][tw]
-  float* st_ed = wtally + WARPS * 2 * tw;                // [WARPS][32]
-  float* st_pr = st_ed + THREADS;                        // [WARPS][32]
+// the 1-D bulk copy (TMA) of the staged tables, completed on an mbarrier
+__device__ __forceinline__ uint32_t smem_addr(const void* q) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(q));
+}
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n"
+      :: "r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n .reg .pred done;\n WAIT_%=:\n"
+      " mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      " @!done bra WAIT_%=;\n}\n"
+      :: "r"(smem_addr(bar)), "r"(parity) : "memory");
+}
 
+// table reads: ld.shared in the staged instance, the read-only path else
+template <bool S, typename T>
+__device__ __forceinline__ T ld(const T* q) {
+  if constexpr (S) return *q; else return __ldg(q);
+}
+
+template <bool S>
+__global__ void __launch_bounds__(MAX_THREADS)
+flight_kernel(Pointers p, Scalars s) {
+  extern __shared__ __align__(16) unsigned char smem[];
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int wl = tid & 31;
-  for (int i = tid; i < WARPS * 2 * tw; i += THREADS) wtally[i] = 0.0f;
-  __syncthreads();
+  const int warps = blockDim.x >> 5;
+  const int nzr = s.nz * s.nr;
+  const int tw = s.win_z ? 2 * s.win_z : nzr;            // tally width
+  float* wtally = reinterpret_cast<float*>(smem + s.off_tally);
+  float* st_ed = reinterpret_cast<float*>(smem + s.off_stage);
+  float* st_pr = st_ed + blockDim.x;
+  int* wcount = reinterpret_cast<int*>(smem + s.off_count);
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem + s.off_bar);
 
-  const int slot = blockIdx.x * THREADS + tid;
+  // ---- stage the tables this mode reads --------------------------------
+  // thread 0 starts one bulk copy per section; the block loads its
+  // photons meanwhile and waits on the mbarrier before the first iteration
+  if constexpr (S) {
+    if (tid == 0) {
+      uint32_t total = 0;
+      for (int k = 0; k < N_SEC; ++k)
+        if (s.sec_smem[k] >= 0) total += (s.sec_bytes[k] + 15) & ~15;
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n"
+                   :: "r"(smem_addr(bar)) : "memory");
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+      asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+                   :: "r"(smem_addr(bar)), "r"(total) : "memory");
+      for (int k = 0; k < N_SEC; ++k)
+        if (s.sec_smem[k] >= 0)
+          bulk_load(smem + s.sec_smem[k], p.tables + s.sec_off[k],
+                    (s.sec_bytes[k] + 15) & ~15, bar);
+    }
+  }
+  // a section's first byte: in shared memory if staged, else global
+  auto at = [&](int k) -> const unsigned char* {
+    if constexpr (S) return smem + max(s.sec_smem[k], 0);
+    else return p.tables + s.sec_off[k];
+  };
+  const float2* t_opac = reinterpret_cast<const float2*>(at(SEC_OPAC));
+  const float* t_kgg = reinterpret_cast<const float*>(at(SEC_KGG));
+  const float* t_redges = reinterpret_cast<const float*>(at(SEC_EDGES));
+  const float* t_zedges = t_redges + s.nr + 1;
+  const float* t_cdf = reinterpret_cast<const float*>(at(SEC_CDF));
+  const uint16_t* t_guide = reinterpret_cast<const uint16_t*>(at(SEC_GUIDE));
+  const float* t_gm1 = reinterpret_cast<const float*>(at(SEC_GM1));
+
+  for (int i = tid; i < warps * 2 * tw; i += blockDim.x) wtally[i] = 0.0f;
+  if (tid < warps * N_COUNT) wcount[tid] = 0;
+
+  const int slot = blockIdx.x * blockDim.x + tid;
   const uint32_t lane = (uint32_t)(slot % TILE);
   const uint32_t seed = (uint32_t)p.seeds[slot / TILE];
   const int win0 = s.win_z ? p.base[slot / TILE] * s.win_z : 0;
@@ -218,6 +323,9 @@ flight_kernel(Pointers p, Scalars s) {
   float* my_tally = wtally + warp * 2 * tw;
   float* my_ed = st_ed + warp * 32;
   float* my_pr = st_pr + warp * 32;
+  int* my_count = wcount + warp * N_COUNT;
+  __syncthreads();
+  if constexpr (S) mbar_wait(bar, 0);
 
   int it = 0;
   while (true) {
@@ -225,8 +333,9 @@ flight_kernel(Pointers p, Scalars s) {
     bool fly = live && (mode == MODE_FLY) && (dcen > 0.0f);
     const bool in_a = live && (mode == MODE_SCT_A);
     const bool in_b = live && (mode == MODE_SCT_B);
-    if (!__any_sync(FULL, (it < s.max_iters) && (fly || in_a || in_b)))
-      break;
+    const unsigned run =
+        __ballot_sync(FULL, (it < s.max_iters) && (fly || in_a || in_b));
+    if (!run) break;
     const uint32_t itu = (uint32_t)it;
     // global zone id (table rows) and the tally's zone key
     const int zid = clipi(jz * s.nr + kr, 0, nzr - 1);
@@ -241,6 +350,15 @@ flight_kernel(Pointers p, Scalars s) {
       }
       tkey = clipi(lz, 0, 2 * s.win_z - 1);
     }
+    const unsigned pass_fly = __ballot_sync(FULL, fly);
+    const unsigned pass_a = __ballot_sync(FULL, in_a);
+    const unsigned pass_b = __ballot_sync(FULL, in_b);
+    if (wl == 0) {
+      my_count[0] += __popc(run);
+      my_count[1] += pass_fly != 0u;
+      my_count[2] += pass_a != 0u;
+      my_count[3] += pass_b != 0u;
+    }
     float edep_add = 0.0f, prdep_add = 0.0f, d_e = 0.0f;
 
     if (fly) {
@@ -251,11 +369,11 @@ flight_kernel(Pointers p, Scalars s) {
       const int i_ph = (int)floorf(x_ph);
       const float f_ph = x_ph - (float)i_ph;
       const int i_p1 = min(i_ph + 1, s.n_vol - 1);
-      const float* srow = p.sig + (size_t)zid * s.n_vol;
-      const float* krow = p.kap + (size_t)zid * s.n_vol;
-      const float sig =
-          mx(srow[i_ph] * (1.0f - f_ph) + srow[i_p1] * f_ph, 1e-30f);
-      const float kap = krow[i_ph] * (1.0f - f_ph) + krow[i_p1] * f_ph;
+      const float2* orow = t_opac + (size_t)zid * s.n_vol;
+      const float2 o0 = ld<S>(orow + i_ph);
+      const float2 o1 = ld<S>(orow + i_p1);
+      const float sig = mx(o0.x * (1.0f - f_ph) + o1.x * f_ph, 1e-30f);
+      const float kap = o0.y * (1.0f - f_ph) + o1.y * f_ph;
       float kgg = 0.0f;
       if (s.pair_switch) {
         // gamma-gamma opacity on the e_gg grid, scaled down below it
@@ -263,9 +381,9 @@ flight_kernel(Pointers p, Scalars s) {
             clip((log_e - s.e_gg_log0) / s.e_gg_dlog, 0.0f, s.x_gg_hi);
         const int i_gg = (int)floorf(x_gg);
         const float f_gg = x_gg - (float)i_gg;
-        const float* grow = p.kgg + (size_t)zid * s.n_gg;
-        kgg = grow[clipi(i_gg, 0, s.n_gg - 1)] * (1.0f - f_gg) +
-              grow[min(i_gg + 1, s.n_gg - 1)] * f_gg;
+        const float* grow = t_kgg + (size_t)zid * s.n_gg;
+        kgg = ld<S>(grow + clipi(i_gg, 0, s.n_gg - 1)) * (1.0f - f_gg) +
+              ld<S>(grow + min(i_gg + 1, s.n_gg - 1)) * f_gg;
         if (!(e > s.e_gg0)) kgg = kgg * e / s.e_gg0;
       }
 
@@ -274,8 +392,10 @@ flight_kernel(Pointers p, Scalars s) {
       const float dcol = -logf(u_tau) / sig;
       const int kr_c = clipi(kr, 0, s.nr - 1);
       const int jz_c = clipi(jz, 0, s.nz - 1);
-      const float r_in = p.redges[kr_c], r_out = p.redges[kr_c + 1];
-      const float z_bot = p.zedges[jz_c], z_top = p.zedges[jz_c + 1];
+      const float r_in = ld<S>(t_redges + kr_c);
+      const float r_out = ld<S>(t_redges + kr_c + 1);
+      const float z_bot = ld<S>(t_zedges + jz_c);
+      const float z_top = ld<S>(t_zedges + jz_c + 1);
 
       const float eta = clip(cphi, -CLAMP, CLAMP);
       const float mu_c = clip(mu, -CLAMP, CLAMP);
@@ -389,22 +509,23 @@ flight_kernel(Pointers p, Scalars s) {
       if (scan_idx < 0) {
         u_e = 1e-7f + u01(seed, itu, 2, lane) * ONE_M_2E7;
         const int cell = guide_cell(u_e);
-        const int* grow = p.guide + (size_t)zid * GUIDE_G;
-        const int lo = grow[cell];
-        const int hi = (cell >= GUIDE_G - 1) ? s.num_nt : grow[cell + 1];
+        const uint16_t* grow = t_guide + (size_t)zid * GUIDE_G;
+        const int lo = ld<S>(grow + cell);
+        const int hi =
+            (cell >= GUIDE_G - 1) ? s.num_nt : (int)ld<S>(grow + cell + 1);
         scan_idx = lo;
         scan_cnt = lo;
         scan_hi = hi;
       }
-      const float* crow = p.cdf + (size_t)zid * s.num_nt;
+      const float* crow = t_cdf + (size_t)zid * s.num_nt;
       for (int k = 0; k < SCAN_S; ++k) {
         const int m = scan_idx + k;
-        if (m < scan_hi && crow[m] < u_e) scan_cnt += 1;
+        if (m < scan_hi && ld<S>(crow + m) < u_e) scan_cnt += 1;
       }
       scan_idx += SCAN_S;
       if (scan_idx >= scan_hi) {
         const int idx = clipi(scan_cnt, 1, s.num_nt - 1);
-        const float gma_new = p.gm1[idx - 1] + 1.0f;
+        const float gma_new = ld<S>(t_gm1 + idx - 1) + 1.0f;
         const float beta_new =
             sqrtf(mx(1.0f - 1.0f / (gma_new * gma_new), 0.0f));
         float om = 2.0f * u01(seed, itu, 3, lane) - 1.0f;
@@ -542,7 +663,7 @@ flight_kernel(Pointers p, Scalars s) {
   p.dcen_o[slot] = dcen;
   p.jz_o[slot] = jz;
   p.kr_o[slot] = kr;
-  p.alive_o[slot] = alive;
+  p.alive_o[slot] = (uint8_t)alive;
   p.mode_o[slot] = mode;
   p.flag_o[slot] = flag;
   p.jn_o[slot] = jn;
@@ -552,53 +673,75 @@ flight_kernel(Pointers p, Scalars s) {
   p.esct_o[slot] = esct;
   p.epair_o[slot] = epair;
   p.cnt_o[slot] = sct_cnt;
+  __syncwarp();
+  if (wl < N_COUNT)
+    p.counters[((size_t)blockIdx.x * warps + warp) * N_COUNT + wl] =
+        my_count[wl];
 
   __syncthreads();
   float* part = p.tally_part + (size_t)blockIdx.x * 2 * tw;
-  for (int i = tid; i < 2 * tw; i += THREADS) {
+  for (int i = tid; i < 2 * tw; i += blockDim.x) {
     float acc = wtally[i];
-    for (int wp = 1; wp < WARPS; ++wp) acc = acc + wtally[wp * 2 * tw + i];
+    for (int wp = 1; wp < warps; ++wp) acc = acc + wtally[wp * 2 * tw + i];
     part[i] = acc;
   }
+}
+
+using KernelFn = void (*)(Pointers, Scalars);
+
+KernelFn kernel_for(int shared_tables) {
+  return shared_tables ? flight_kernel<true> : flight_kernel<false>;
 }
 
 }  // namespace
 
 extern "C" {
 
-int flight_threads_per_block() { return THREADS; }
+int flight_pointers_bytes() { return (int)sizeof(Pointers); }
+int flight_scalars_bytes() { return (int)sizeof(Scalars); }
 
-// Launches the kernel on `stream` and returns cudaGetLastError().
-// `ptrs` holds the N_POINTERS device pointers in the order of Pointers.
-// n must be a multiple of TILE. The per-warp tallies fit 48 KB of shared
-// memory with nz * nr <= 1024 (win_z = 0) or 2 * win_z <= 1024 (windowed,
-// nz and nr <= 127, the reference's edge limit). inline_scatter and
-// pair_switch are 1 or 0.
-int flight_launch(const uint64_t* ptrs, int n_ptrs, int n, int nz, int nr,
-                  int n_vol, int n_gg, int num_nt, int max_iters,
-                  int max_tries, int inline_scatter, int pair_switch,
-                  int win_z, float e_ph_log0, float e_ph_dlog, float x_ph_hi,
-                  float e_gg_log0, float e_gg_dlog, float x_gg_hi,
-                  float e_gg0, float weight_floor, void* stream) {
-  const bool grid_ok = win_z ? (win_z > 0 && 2 * win_z <= 1024 && nz <= 127
-                                && nr <= 127)
-                             : nz * nr <= 1024;
-  if (n_ptrs != N_POINTERS || n % TILE != 0 || !grid_ok)
+// Blocks of the kernel's instance (its staged-table one if shared_tables)
+// that one SM holds at `threads` threads and `smem` bytes of dynamic
+// shared memory a block, as cudaOccupancyMaxActiveBlocksPerMultiprocessor
+// reports it; a negative cudaError on failure.
+int flight_occupancy(int shared_tables, int threads, int smem) {
+  const KernelFn fn = kernel_for(shared_tables);
+  cudaError_t err = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_MAX);
+  if (err != cudaSuccess) return -(int)err;
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, threads,
+                                                      (size_t)smem);
+  return err != cudaSuccess ? -(int)err : blocks;
+}
+
+// Launches the kernel on `stream` and returns cudaGetLastError(). `ptrs`
+// and `scalars` point to a Pointers and a Scalars, whose sizes are checked
+// against the caller's. The wrapper picks the block size and lays out the
+// shared memory (transport/flight.py); a block of `threads` slots divides
+// a 1024-slot tile, and n is a multiple of the tile. The per-warp tallies
+// hold nz * nr <= 1024 zones (win_z = 0) or a window of 2 * win_z <= 1024
+// (windowed, nz and nr <= 127, the reference's edge limit).
+int flight_launch(const void* ptrs, const void* scalars, int p_bytes,
+                  int s_bytes, void* stream) {
+  if (p_bytes != (int)sizeof(Pointers) || s_bytes != (int)sizeof(Scalars))
     return (int)cudaErrorInvalidValue;
-  Pointers p;
-  static_assert(sizeof(Pointers) == N_POINTERS * sizeof(void*),
-                "Pointers layout");
-  const void** dst = reinterpret_cast<const void**>(&p);
-  for (int i = 0; i < N_POINTERS; ++i)
-    dst[i] = reinterpret_cast<const void*>(ptrs[i]);
-  Scalars s{n, nz, nr, n_vol, n_gg, num_nt, max_iters, max_tries,
-            inline_scatter ? 1 : 0, pair_switch ? 1 : 0, win_z, e_ph_log0,
-            e_ph_dlog, x_ph_hi, e_gg_log0, e_gg_dlog, x_gg_hi, e_gg0,
-            weight_floor};
-  const int tw = win_z ? 2 * win_z : nz * nr;
-  const size_t smem = sizeof(float) * ((size_t)WARPS * 2 * tw + 2 * THREADS);
-  flight_kernel<<<n / THREADS, THREADS, smem,
-                  reinterpret_cast<cudaStream_t>(stream)>>>(p, s);
+  const Pointers* p = static_cast<const Pointers*>(ptrs);
+  const Scalars* s = static_cast<const Scalars*>(scalars);
+  const bool grid_ok =
+      s->win_z ? (s->win_z > 0 && 2 * s->win_z <= 1024 && s->nz <= 127 &&
+                  s->nr <= 127)
+               : s->nz * s->nr <= 1024;
+  if (!grid_ok || s->n % TILE != 0 || s->threads < 32 ||
+      s->threads > MAX_THREADS || TILE % s->threads != 0 ||
+      s->smem > SMEM_MAX)
+    return (int)cudaErrorInvalidValue;
+  const KernelFn fn = kernel_for(s->shared_tables);
+  cudaError_t err = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_MAX);
+  if (err != cudaSuccess) return (int)err;
+  fn<<<s->n / s->threads, s->threads, (size_t)s->smem,
+       reinterpret_cast<cudaStream_t>(stream)>>>(*p, *s);
   return (int)cudaGetLastError();
 }
 

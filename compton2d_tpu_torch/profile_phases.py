@@ -25,8 +25,9 @@ reference's largest grid (99x99 zones, 524288 slots, nst 240000, the main
 path's table widths) and ``grid_40x30`` the reference's windowed-test grid
 at the main path's widths and slots; each for 2 warm-up and ``--steps``
 timed steps. Beside the times it prints the tracking rounds, the lanes
-frozen with FLAG_WINDOW and the stragglers sent to census per step, and
-the card's peak memory.
+frozen with FLAG_WINDOW and the stragglers sent to census per step, the
+card's peak memory, and the flight kernel's own device time per step
+(CUDA events around each launch in the plain run, read after it).
 """
 from __future__ import annotations
 
@@ -118,9 +119,26 @@ def main(argv=None):
 
     sim = make_sim(args.config, device)
     torch.cuda.reset_peak_memory_stats(device)
-    wall, outs = drive(sim, args.config, args.steps, args.warm)
+    events = []
+    launch = flight._launch
+
+    def launch_timed(largs):
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        launch(largs)
+        t1.record()
+        events.append((t0, t1))
+
+    flight._launch = launch_timed
+    try:
+        wall, outs = drive(sim, args.config, args.steps, args.warm,
+                           on_timed=events.clear)
+    finally:
+        flight._launch = launch
     n = len(outs)
     peak = torch.cuda.max_memory_allocated(device)
+    kernel_ms = sum(t0.elapsed_time(t1) for t0, t1 in events)
 
     acc = collections.defaultdict(lambda: [0.0, 0])
     originals = []
@@ -160,6 +178,8 @@ def main(argv=None):
         "stragglers_per_step":
             sum(int(o.tallies.n_straggler) for o in outs) / n,
         "peak_memory_bytes": peak,
+        "flight_kernel_device_ms_per_step": kernel_ms / n,
+        "flight_launches_per_step": len(events) / n,
         "ms_per_step_wrapped": 1e3 * wall_w / len(outs_w),
         "phases_ms_per_step": {k: 1e3 * v[0] / len(outs_w)
                                for k, v in acc.items()},

@@ -15,10 +15,14 @@ is kept per window. Three pieces:
   layout (the counterpart of ``build_kernel_tables``): sigma/kappa rows,
   the gamma-gamma opacity rows on the e_gg grid, the electron CDF, the
   512-cell guide ``guide[z, j] = #(cdf[z] < u_edge[j])`` and the
-  bin-midpoint gamma-1;
+  bin-midpoint gamma-1; and the kernel's packed copy of them
+  (:func:`packed_layout`), which a block stages in shared memory when
+  :func:`table_placement` says they fit;
 - :func:`flight_step` — the wrapper of the hand-written CUDA kernel
-  ``csrc/flight.cu``. On a CUDA tensor it launches the kernel or raises;
-  only for CPU tensors does it run the plain version;
+  ``csrc/flight.cu``: one thread per slot, in blocks sized from the
+  build's occupancy (:func:`plan_block`). On a CUDA tensor it launches the
+  kernel or raises; only for CPU tensors does it run the plain version.
+  :func:`launch_only` prepares a launch once for timing the kernel alone;
 - :func:`flight_step_reference` — the plain PyTorch version: the kernel's
   lock-step loop over all lanes with the same counter hash, so it matches
   the kernel (and ``flight_step_v2(..., interpret=True)``) lane for lane.
@@ -29,14 +33,16 @@ of ``flight_step_v2``.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
 import time
 from pathlib import Path
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -45,9 +51,17 @@ TILE = 1024        # RNG tile: lane = slot % TILE, seed = seeds[slot // TILE]
 K_LOG = 8          # per-lane scatter-event log depth
 SCAN_S = 4         # CDF bins counted per SCT_A iteration
 GUIDE_G = 512      # electron-CDF guide cells
-MAX_ZONES = 1024   # per-warp tallies must fit 48 KB of shared memory
+MAX_ZONES = 1024   # the resident mode's per-warp tallies over all zones
 MAX_EDGE = 127     # nz, nr each (the reference's cap is 99, general.pa)
 WIN_Z = 128        # windowed mode: zones per window block, two per tile
+
+# the kernel's blocks and shared memory (csrc/flight.cu)
+BLOCK_THREADS = (128, 256, 512, 1024)   # block sizes the planner tries
+SMEM_MAX = 232448          # dynamic shared memory one block may use
+N_COUNT = 4                # per-warp counters (see FlightResult.counters)
+# sections of the packed tables, in their order: sigma/kappa interleaved,
+# kgg, the r then z edges, the CDF, the uint16 guide, gamma-1
+SECTIONS = ("opac", "kgg", "edges", "cdf", "guide", "gm1")
 
 FLAG_NONE = 0
 FLAG_SCATTER = 1
@@ -70,18 +84,22 @@ LAUNCHES = 0
 STRAT_LAUNCHES = 0
 PAIR_LAUNCHES = 0
 WINDOW_LAUNCHES = 0
+# of all launches, those that read the tables from global memory (see
+# table_placement)
+GLOBAL_LAUNCHES = 0
 
 _SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "flight.cu"
 _BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
+    "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 _lib = None
 
 
 class FlightTables(NamedTuple):
-    """Per-step zone tables in natural layout (f32 unless noted)."""
+    """Per-step zone tables in natural layout (f32 unless noted), which
+    the plain version reads, and the kernel's packed copy of them."""
 
     sig: torch.Tensor        # (nzr, n_vol) scattering opacity [1/L]
     kap: torch.Tensor        # (nzr, n_vol) absorption opacity [1/L]
@@ -91,6 +109,7 @@ class FlightTables(NamedTuple):
     gm1: torch.Tensor        # (num_nt - 1,) bin-midpoint gamma-1
     r_edges: torch.Tensor    # (nr + 1,)
     z_edges: torch.Tensor    # (nz + 1,)
+    packed: torch.Tensor     # uint8 bytes in the layout of packed_layout
     e_ph_log0: float         # f32 value of log(e_ph[0])
     e_ph_dlog: float         # f32 value of log(e_ph[1] / e_ph[0])
     e_gg_log0: float         # f32 value of log(e_gg[0])
@@ -124,6 +143,11 @@ class FlightResult(NamedTuple):
     # in the strat mode, which logs nothing
     iglog: torch.Tensor      # int32, -1 = empty
     delog: torch.Tensor      # f32
+    # the kernel's per-warp counters (n // 32, N_COUNT) int32: lanes that
+    # ran an iteration (lane-iterations), and the iterations in which the
+    # warp ran the FLY, SCT_A and SCT_B bodies (warp passes); None from
+    # the plain version
+    counters: Optional[torch.Tensor] = None
 
 
 def guide_u_edges() -> np.ndarray:
@@ -178,6 +202,71 @@ def window_base(jz, kr, alive, dcen, nz: int, nr: int,
                        n_blocks - 2).to(torch.int32)
 
 
+def _pad16(nbytes: int) -> int:
+    return -(-nbytes // 16) * 16
+
+
+def packed_layout(nz: int, nr: int, n_vol: int, n_gg: int,
+                  num_nt: int) -> dict:
+    """{section: (byte offset, bytes)} of the packed tables: SECTIONS in
+    order, each starting on 16 bytes."""
+    nzr = nz * nr
+    sizes = dict(opac=8 * nzr * n_vol, kgg=4 * nzr * n_gg,
+                 edges=4 * (nr + nz + 2), cdf=4 * nzr * num_nt,
+                 guide=2 * nzr * GUIDE_G, gm1=4 * (num_nt - 1))
+    out, off = {}, 0
+    for name in SECTIONS:
+        out[name] = (off, sizes[name])
+        off += _pad16(sizes[name])
+    return out
+
+
+def staged_sections(inline_scatter: bool, pair_switch: bool) -> tuple:
+    """The sections a kernel mode reads: the strat modes never run SCT_A,
+    and kgg is read only under pair_switch."""
+    return (("opac", "edges") + (("kgg",) if pair_switch else ())
+            + (("cdf", "guide", "gm1") if inline_scatter else ()))
+
+
+def _smem_layout(staged: dict, tally_w: int,
+                 threads: int) -> Tuple[dict, int]:
+    """Byte offsets of the kernel's shared memory and its total at
+    ``threads`` threads a block: the staged sections ({name: bytes}), the
+    per-warp tally rows, the tally reduction's staging, the per-warp
+    counters and the mbarrier (csrc/flight.cu)."""
+    warps = threads // 32
+    lay, off = {}, 0
+    for name in SECTIONS:
+        if name in staged:
+            lay[name] = off
+            off += _pad16(staged[name])
+    for name, nbytes in (("tally", 4 * warps * 2 * tally_w),
+                         ("stage", 8 * threads),
+                         ("count", 4 * N_COUNT * warps), ("bar", 8)):
+        lay[name] = off
+        off += _pad16(nbytes)
+    return lay, off
+
+
+def table_placement(nz: int, nr: int, n_vol: int, n_gg: int, num_nt: int,
+                    inline_scatter: bool, pair_switch: bool
+                    ) -> Tuple[str, int]:
+    """("shared" or "global", bytes of the sections the mode reads). A
+    resident grid stages them in each block's shared memory when they fit
+    beside the rest of the largest block's layout (so that the block size
+    need not shrink the warps an SM holds); other grids, and the windowed
+    mode, read the packed tables from global memory."""
+    lay = packed_layout(nz, nr, n_vol, n_gg, num_nt)
+    staged = {k: lay[k][1] for k in staged_sections(inline_scatter,
+                                                    pair_switch)}
+    nbytes = sum(staged.values())
+    if window_z(nz, nr) == 0:
+        _, total = _smem_layout(staged, nz * nr, max(BLOCK_THREADS))
+        if total <= SMEM_MAX:
+            return "shared", nbytes
+    return "global", nbytes
+
+
 def build_flight_tables(
     opac_zone: torch.Tensor,   # (nzr, n_vol, 2) [sigma, kappa]
     cdf_nt: torch.Tensor,      # (nzr, num_nt)
@@ -199,21 +288,41 @@ def build_flight_tables(
                                device=dev)
     log0_32 = torch.tensor(float(e_gg_log0), dtype=f32)
     cdf = cdf_nt.to(f32).contiguous()
+    num_nt = cdf.shape[1]
+    if num_nt >= 65535:
+        raise ValueError(f"num_nt={num_nt}: the packed guide holds uint16 "
+                         "counts, so num_nt must be below 65535")
     u_edges = torch.as_tensor(guide_u_edges(), device=dev)
     # exact compare-count (the CDF need not be bitwise monotone)
     guide = torch.sum(
         cdf[:, :, None] < u_edges[None, None, :], dim=1, dtype=torch.int32
     )
     gnt32 = gnt.to(f32)
+    opac = opac_zone.to(f32).contiguous()
+    n_vol = opac.shape[1]
+    kgg = kgg_zone.to(f32).contiguous()
+    gm1 = torch.sqrt(gnt32[1:] * gnt32[:-1]).contiguous()
+    r32 = r_edges.to(f32).contiguous()
+    z32 = z_edges.to(f32).contiguous()
+    lay = packed_layout(z32.shape[0] - 1, r32.shape[0] - 1, n_vol,
+                        kgg.shape[1], num_nt)
+    off, nbytes = lay[SECTIONS[-1]]
+    packed = torch.zeros(_pad16(off + nbytes), dtype=torch.uint8, device=dev)
+    for name, t in (("opac", opac), ("kgg", kgg),
+                    ("edges", torch.cat([r32, z32])), ("cdf", cdf),
+                    ("guide", guide.to(torch.uint16)), ("gm1", gm1)):
+        off, nbytes = lay[name]
+        packed[off:off + nbytes] = t.reshape(-1).view(torch.uint8)
     return FlightTables(
-        sig=opac_zone[:, :, 0].to(f32).contiguous(),
-        kap=opac_zone[:, :, 1].to(f32).contiguous(),
-        kgg=kgg_zone.to(f32).contiguous(),
+        sig=opac[:, :, 0].contiguous(),
+        kap=opac[:, :, 1].contiguous(),
+        kgg=kgg,
         cdf=cdf,
         guide=guide.contiguous(),
-        gm1=torch.sqrt(gnt32[1:] * gnt32[:-1]).contiguous(),
-        r_edges=r_edges.to(f32).contiguous(),
-        z_edges=z_edges.to(f32).contiguous(),
+        gm1=gm1,
+        r_edges=r32,
+        z_edges=z32,
+        packed=packed,
         e_ph_log0=float(np.float32(e_ph_log0)),
         e_ph_dlog=float(np.float32(e_ph_dlog)),
         e_gg_log0=float(log0_32),
@@ -588,56 +697,83 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
-def library_path() -> Path:
-    """Build output for the current source and flags (hash-keyed)."""
-    h = hashlib.sha256(_SOURCE.read_bytes())
+def library_path(source: Path = _SOURCE) -> Path:
+    """Build output for ``source`` and the flags (hash-keyed)."""
+    h = hashlib.sha256(Path(source).read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return _BUILD_DIR / f"flight_{h.hexdigest()[:16]}.so"
 
 
-def build() -> float:
-    """Compile ``csrc/flight.cu`` with nvcc for sm_90a if the hash-keyed
-    library is missing, and load it. Returns the seconds spent."""
-    global _lib
-    t0 = time.perf_counter()
-    path = library_path()
+def compile_source(source: Path = _SOURCE) -> Path:
+    """Compile ``source`` with nvcc for sm_90a into its hash-keyed library
+    if that is missing, keeping ptxas's report beside it
+    (:func:`ptxas_report`). Returns the library's path."""
+    path = library_path(source)
     if not path.exists():
         _BUILD_DIR.mkdir(parents=True, exist_ok=True)
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
         os.close(fd)
         try:
             proc = subprocess.run(
-                [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(_SOURCE)],
+                [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(source)],
                 capture_output=True, text=True,
             )
             if proc.returncode != 0:
                 raise RuntimeError(
                     f"nvcc failed ({proc.returncode}):\n{proc.stderr}"
                 )
+            path.with_suffix(".ptxas.txt").write_text(proc.stderr)
             os.replace(tmp, path)
         finally:
             if os.path.exists(tmp):
                 os.remove(tmp)
-    if _lib is None:
+    return path
+
+
+def ptxas_report(source: Path = _SOURCE) -> str:
+    """One line for each flight-kernel instance of ``source``'s build:
+    ptxas's registers, stack and spills."""
+    txt = library_path(source).with_suffix(".ptxas.txt").read_text()
+    out = []
+    for ln in txt.splitlines():
+        entry = re.search(r"Compiling entry function '(\S+)'", ln)
+        if entry:
+            args = re.search(r"flight_kernelILb(\d)E", entry[1])
+            name = (f"flight_kernel<{'true' if args[1] == '1' else 'false'}>"
+                    if args else entry[1])
+            out.append([name] if "flight_kernel" in entry[1] else [])
+        elif out and out[-1] and ("registers" in ln or "spill" in ln):
+            out[-1].append(ln.replace("ptxas info    : ", "").strip())
+    return "\n".join(": ".join([k[0], "; ".join(k[1:])])
+                     for k in out if k) or txt.strip()
+
+
+def build(source: Path = _SOURCE) -> float:
+    """Compile ``source`` (the package's ``csrc/flight.cu`` by default) if
+    its hash-keyed library is missing, and load it as the kernel that
+    :func:`flight_step` launches. Returns the seconds spent."""
+    global _lib
+    t0 = time.perf_counter()
+    path = compile_source(source)
+    if _lib is None or Path(_lib._name) != path:
         lib = ctypes.CDLL(str(path))
-        lib.flight_launch.argtypes = (
-            [ctypes.c_void_p, ctypes.c_int]
-            + [ctypes.c_int] * 11
-            + [ctypes.c_float] * 8
-            + [ctypes.c_void_p]
-        )
+        for fn in ("flight_pointers_bytes", "flight_scalars_bytes"):
+            getattr(lib, fn).argtypes = []
+            getattr(lib, fn).restype = ctypes.c_int
+        lib.flight_occupancy.argtypes = [ctypes.c_int] * 3
+        lib.flight_occupancy.restype = ctypes.c_int
+        lib.flight_launch.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                      ctypes.c_int, ctypes.c_int,
+                                      ctypes.c_void_p]
         lib.flight_launch.restype = ctypes.c_int
-        lib.flight_threads_per_block.argtypes = []
-        lib.flight_threads_per_block.restype = ctypes.c_int
+        built = (lib.flight_pointers_bytes(), lib.flight_scalars_bytes())
+        wanted = (ctypes.sizeof(_Pointers), ctypes.sizeof(_Scalars))
+        if built != wanted:
+            raise RuntimeError(f"{path.name}: struct bytes {built}, the "
+                               f"wrapper's {wanted}")
         _lib = lib
+        plan_block.cache_clear()
     return time.perf_counter() - t0
-
-
-def threads_per_block() -> int:
-    """Threads of one kernel block: the slots of one tally partial."""
-    if _lib is None:
-        build()
-    return _lib.flight_threads_per_block()
 
 
 def _check(t: torch.Tensor, name: str, dtype, shape, device):
@@ -672,28 +808,98 @@ def _recombine_windows(part, base, win_z: int, nzr: int) -> torch.Tensor:
     return tally[:nzr].t().contiguous()
 
 
-def flight_step(
-    e, w, w0, r, z, mu, cphi, sphi, dcen, jz, kr, alive,
-    tables: FlightTables, seeds, *, nz: int, nr: int,
-    weight_floor: float, max_iters: int, max_tries: int,
-    inline_scatter: bool = True, pair_switch: bool = False,
-) -> FlightResult:
-    """One kernel entry over all photon slots. CPU tensors run
-    :func:`flight_step_reference`; CUDA tensors launch ``csrc/flight.cu``
-    (built at first use) or raise. A grid above MAX_ZONES runs the
-    windowed mode (:func:`window_z`); its per-tile window tallies are
-    recombined here in a fixed order."""
-    global LAUNCHES, STRAT_LAUNCHES, PAIR_LAUNCHES, WINDOW_LAUNCHES
-    kw = dict(nz=nz, nr=nr, weight_floor=weight_floor,
-              max_iters=max_iters, max_tries=max_tries,
-              inline_scatter=inline_scatter, pair_switch=pair_switch)
-    if e.device.type == "cpu":
-        return flight_step_reference(
-            e, w, w0, r, z, mu, cphi, sphi, dcen, jz, kr, alive,
-            tables, seeds, **kw,
-        )
-    if e.device.type != "cuda":
-        raise ValueError(f"flight_step: unsupported device {e.device}")
+_IN = ("e", "w", "w0", "r", "z", "mu", "cphi", "sphi", "dcen", "jz", "kr",
+       "alive", "seeds", "base", "tables")
+_OUT = ("e", "w", "r", "z", "mu", "cphi", "sphi", "dcen", "jz", "kr",
+        "alive", "mode", "flag", "jn", "kn", "it", "ekill", "esct", "epair",
+        "cnt", "tally", "counters", "iglog", "delog")
+
+
+class _Pointers(ctypes.Structure):
+    """``struct Pointers`` of csrc/flight.cu: the inputs, then the
+    outputs."""
+
+    _fields_ = ([(f"in_{k}", ctypes.c_void_p) for k in _IN]
+                + [(f"out_{k}", ctypes.c_void_p) for k in _OUT])
+
+
+class _Scalars(ctypes.Structure):
+    """``struct Scalars`` of csrc/flight.cu."""
+
+    _fields_ = (
+        [(k, ctypes.c_int) for k in (
+            "n", "nz", "nr", "n_vol", "n_gg", "num_nt", "max_iters",
+            "max_tries", "inline_scatter", "pair_switch", "win_z",
+            "shared_tables", "threads", "smem")]
+        + [(k, ctypes.c_int * len(SECTIONS))
+           for k in ("sec_off", "sec_bytes", "sec_smem")]
+        + [(k, ctypes.c_int) for k in (
+            "off_tally", "off_stage", "off_count", "off_bar")]
+        + [(k, ctypes.c_float) for k in (
+            "e_ph_log0", "e_ph_dlog", "x_ph_hi", "e_gg_log0", "e_gg_dlog",
+            "x_gg_hi", "e_gg0", "weight_floor")]
+    )
+
+
+class BlockPlan(NamedTuple):
+    shared: bool         # tables staged in shared memory
+    threads: int         # threads (slots) of a block
+    per_sm: int          # blocks an SM holds
+    smem: int            # dynamic shared memory of a block
+    lay: dict            # its offsets (_smem_layout)
+
+
+@functools.lru_cache(maxsize=None)
+def plan_block(nz: int, nr: int, n_vol: int, n_gg: int, num_nt: int,
+               inline_scatter: bool, pair_switch: bool) -> BlockPlan:
+    """The block of a launch (the loaded build's occupancy; :func:`build`
+    first): of BLOCK_THREADS, the size whose blocks keep the most warps
+    resident on an SM at the shared memory they need (the tables if
+    :func:`table_placement` stages them, the per-warp tallies), the
+    smaller on a tie."""
+    win_z = window_z(nz, nr)
+    placement, _ = table_placement(nz, nr, n_vol, n_gg, num_nt,
+                                   inline_scatter, pair_switch)
+    shared = placement == "shared"
+    lay = packed_layout(nz, nr, n_vol, n_gg, num_nt)
+    staged = ({k: lay[k][1] for k in staged_sections(inline_scatter,
+                                                     pair_switch)}
+              if shared else {})
+    tally_w = 2 * win_z if win_z else nz * nr
+    best = None
+    for threads in BLOCK_THREADS:
+        smem_lay, smem = _smem_layout(staged, tally_w, threads)
+        if smem > SMEM_MAX:
+            continue
+        fits = _lib.flight_occupancy(int(shared), threads, smem)
+        if fits < 0:
+            raise RuntimeError(f"flight_occupancy: cudaError {-fits}")
+        if fits and (best is None
+                     or fits * threads > best.per_sm * best.threads):
+            best = BlockPlan(shared, threads, fits, smem, smem_lay)
+    if best is None:
+        raise RuntimeError(f"flight kernel: no block fits one SM ({nz}x{nr}"
+                           " zones)")
+    return best
+
+
+class _Prepared(NamedTuple):
+    """A checked kernel launch: its C arguments and its outputs."""
+
+    args: tuple
+    outs: dict
+    base: Optional[torch.Tensor]
+    win_z: int
+    nzr: int
+    shared: bool         # the tables staged in shared memory
+
+
+def _prepare(e, w, w0, r, z, mu, cphi, sphi, dcen, jz, kr, alive,
+             tables: FlightTables, seeds, *, nz: int, nr: int,
+             weight_floor: float, max_iters: int, max_tries: int,
+             inline_scatter: bool, pair_switch: bool) -> _Prepared:
+    """Check the CUDA inputs, plan the block, allocate the outputs and
+    collect the kernel's arguments."""
     n = e.shape[0]
     nzr = nz * nr
     n_vol = tables.sig.shape[1]
@@ -714,72 +920,148 @@ def flight_step(
         _check(t, name, i32, (n,), dev)
     _check(alive, "alive", torch.bool, (n,), dev)
     _check(seeds, "seeds", i32, (n // TILE,), dev)
-    _check(tables.sig, "sig", f32, (nzr, n_vol), dev)
-    _check(tables.kap, "kap", f32, (nzr, n_vol), dev)
-    _check(tables.kgg, "kgg", f32, (nzr, n_gg), dev)
-    _check(tables.cdf, "cdf", f32, (nzr, num_nt), dev)
-    _check(tables.guide, "guide", i32, (nzr, GUIDE_G), dev)
-    _check(tables.gm1, "gm1", f32, (num_nt - 1,), dev)
-    _check(tables.r_edges, "r_edges", f32, (nr + 1,), dev)
-    _check(tables.z_edges, "z_edges", f32, (nz + 1,), dev)
-    threads = threads_per_block()
-    alive_i = alive.to(i32)
+    lay = packed_layout(nz, nr, n_vol, n_gg, num_nt)
+    off, nbytes = lay[SECTIONS[-1]]
+    _check(tables.packed, "packed", torch.uint8, (_pad16(off + nbytes),),
+           dev)
+    if _lib is None:
+        build()
+    plan = plan_block(nz, nr, n_vol, n_gg, num_nt, bool(inline_scatter),
+                      bool(pair_switch))
     # the windowed mode's base blocks; the resident mode reads none
-    base = (window_base(jz, kr, alive, dcen, nz, nr, win_z) if win_z
-            else torch.zeros(n // TILE, dtype=i32, device=dev))
+    base = window_base(jz, kr, alive, dcen, nz, nr, win_z) if win_z else None
 
     def emp(dtype, *shape):
         return torch.empty(shape, dtype=dtype, device=dev)
 
     n_log = n if inline_scatter else 0
     tally_w = 2 * win_z if win_z else nzr
-
     outs = dict(
         e=emp(f32, n), w=emp(f32, n), r=emp(f32, n), z=emp(f32, n),
         mu=emp(f32, n), cphi=emp(f32, n), sphi=emp(f32, n),
         dcen=emp(f32, n), jz=emp(i32, n), kr=emp(i32, n),
-        alive=emp(i32, n), mode=emp(i32, n), flag=emp(i32, n),
+        alive=emp(torch.bool, n), mode=emp(i32, n), flag=emp(i32, n),
         jn=emp(i32, n), kn=emp(i32, n), it=emp(i32, n),
         ekill=emp(f32, n), esct=emp(f32, n), epair=emp(f32, n),
-        cnt=emp(i32, n), tally=emp(f32, n // threads, 2, tally_w),
+        cnt=emp(i32, n), tally=emp(f32, n // plan.threads, 2, tally_w),
+        counters=emp(i32, n // 32, N_COUNT),
         iglog=emp(i32, n_log, K_LOG), delog=emp(f32, n_log, K_LOG),
     )
-    ptrs = [t.data_ptr() for t in (
-        e, w, w0, r, z, mu, cphi, sphi, dcen, jz, kr, alive_i, seeds, base,
-        tables.sig, tables.kap, tables.kgg, tables.cdf, tables.guide,
-        tables.gm1, tables.r_edges, tables.z_edges,
-    )] + [t.data_ptr() for t in outs.values()]
-    arr = (ctypes.c_uint64 * len(ptrs))(*ptrs)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = _lib.flight_launch(
-        arr, len(ptrs), n, nz, nr, n_vol, n_gg, num_nt, int(max_iters),
-        int(max_tries), int(bool(inline_scatter)), int(bool(pair_switch)),
-        int(win_z), tables.e_ph_log0, tables.e_ph_dlog,
-        float(np.float32(n_vol - 1.000001)), tables.e_gg_log0,
-        tables.e_gg_dlog, float(np.float32(n_gg - 1.000001)), tables.e_gg0,
-        float(np.float32(weight_floor)), stream,
+    ins = dict(e=e, w=w, w0=w0, r=r, z=z, mu=mu, cphi=cphi, sphi=sphi,
+               dcen=dcen, jz=jz, kr=kr, alive=alive, seeds=seeds, base=base,
+               tables=tables.packed)
+    ptrs = _Pointers(
+        *[0 if ins[k] is None else ins[k].data_ptr() for k in _IN],
+        *[outs[k].data_ptr() for k in _OUT])
+    staged = staged_sections(inline_scatter, pair_switch)
+    sc = _Scalars(
+        n=n, nz=nz, nr=nr, n_vol=n_vol, n_gg=n_gg, num_nt=num_nt,
+        max_iters=int(max_iters), max_tries=int(max_tries),
+        inline_scatter=int(bool(inline_scatter)),
+        pair_switch=int(bool(pair_switch)), win_z=win_z,
+        shared_tables=int(plan.shared), threads=plan.threads, smem=plan.smem,
+        off_tally=plan.lay["tally"], off_stage=plan.lay["stage"],
+        off_count=plan.lay["count"], off_bar=plan.lay["bar"],
+        e_ph_log0=tables.e_ph_log0, e_ph_dlog=tables.e_ph_dlog,
+        x_ph_hi=float(np.float32(n_vol - 1.000001)),
+        e_gg_log0=tables.e_gg_log0, e_gg_dlog=tables.e_gg_dlog,
+        x_gg_hi=float(np.float32(n_gg - 1.000001)), e_gg0=tables.e_gg0,
+        weight_floor=float(np.float32(weight_floor)),
     )
+    for i, name in enumerate(SECTIONS):
+        sc.sec_off[i], sc.sec_bytes[i] = lay[name]
+        sc.sec_smem[i] = (plan.lay[name]
+                          if plan.shared and name in staged else -1)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    # the structs are passed by pointer and live as long as the arguments
+    args = (ctypes.byref(ptrs), ctypes.byref(sc), ctypes.sizeof(ptrs),
+            ctypes.sizeof(sc), stream)
+    return _Prepared(args, outs, base, win_z, nzr, plan.shared)
+
+
+def _launch(args: tuple) -> None:
+    """One launch of the loaded kernel (``flight_launch``'s arguments)."""
+    rc = _lib.flight_launch(*args)
     if rc != 0:
         raise RuntimeError(f"flight kernel launch failed: cudaError {rc}")
+
+
+def _result(prep: _Prepared) -> FlightResult:
+    o = prep.outs
+    if prep.win_z:
+        tally = _recombine_windows(o["tally"], prep.base, prep.win_z,
+                                   prep.nzr)
+    else:
+        tally = torch.sum(o["tally"], dim=0)
+    return FlightResult(
+        e=o["e"], w=o["w"], r=o["r"], z=o["z"], mu=o["mu"],
+        cphi=o["cphi"], sphi=o["sphi"], dcen=o["dcen"], jz=o["jz"],
+        kr=o["kr"], alive=o["alive"], mode=o["mode"], flag=o["flag"],
+        jn=o["jn"], kn=o["kn"], it_used=int(o["it"].max()),
+        ekill=torch.sum(o["ekill"]), esct=torch.sum(o["esct"]),
+        epair=torch.sum(o["epair"]), sct_cnt=o["cnt"],
+        tally=tally, iglog=o["iglog"], delog=o["delog"],
+        counters=o["counters"],
+    )
+
+
+class Launch:
+    """A kernel launch prepared once: calling it launches the kernel alone
+    on the same preallocated outputs (its launches are not counted);
+    ``result()`` reads them as :class:`FlightResult`."""
+
+    def __init__(self, prep: _Prepared):
+        self._prep = prep
+
+    def __call__(self) -> None:
+        _launch(self._prep.args)
+
+    def result(self) -> FlightResult:
+        return _result(self._prep)
+
+
+def launch_only(e, w, w0, r, z, mu, cphi, sphi, dcen, jz, kr, alive,
+                tables: FlightTables, seeds, **kw) -> Launch:
+    """The timing hook: checks the CUDA inputs and allocates the outputs
+    once (``flight_step``'s arguments) and returns the :class:`Launch`."""
+    return Launch(_prepare(e, w, w0, r, z, mu, cphi, sphi, dcen, jz, kr,
+                           alive, tables, seeds, **kw))
+
+
+def flight_step(
+    e, w, w0, r, z, mu, cphi, sphi, dcen, jz, kr, alive,
+    tables: FlightTables, seeds, *, nz: int, nr: int,
+    weight_floor: float, max_iters: int, max_tries: int,
+    inline_scatter: bool = True, pair_switch: bool = False,
+) -> FlightResult:
+    """One kernel entry over all photon slots. CPU tensors run
+    :func:`flight_step_reference`; CUDA tensors launch ``csrc/flight.cu``
+    (built at first use) or raise. A grid above MAX_ZONES runs the
+    windowed mode (:func:`window_z`); its per-tile window tallies are
+    recombined here in a fixed order."""
+    global LAUNCHES, STRAT_LAUNCHES, PAIR_LAUNCHES, WINDOW_LAUNCHES
+    global GLOBAL_LAUNCHES
+    kw = dict(nz=nz, nr=nr, weight_floor=weight_floor,
+              max_iters=max_iters, max_tries=max_tries,
+              inline_scatter=inline_scatter, pair_switch=pair_switch)
+    if e.device.type == "cpu":
+        return flight_step_reference(
+            e, w, w0, r, z, mu, cphi, sphi, dcen, jz, kr, alive,
+            tables, seeds, **kw,
+        )
+    if e.device.type != "cuda":
+        raise ValueError(f"flight_step: unsupported device {e.device}")
+    prep = _prepare(e, w, w0, r, z, mu, cphi, sphi, dcen, jz, kr, alive,
+                    tables, seeds, **kw)
+    _launch(prep.args)
     if inline_scatter:
         LAUNCHES += 1
     else:
         STRAT_LAUNCHES += 1
     if pair_switch:
         PAIR_LAUNCHES += 1
-    if win_z:
+    if prep.win_z:
         WINDOW_LAUNCHES += 1
-        tally = _recombine_windows(outs["tally"], base, win_z, nzr)
-    else:
-        tally = torch.sum(outs["tally"], dim=0)
-    o = outs
-    return FlightResult(
-        e=o["e"], w=o["w"], r=o["r"], z=o["z"], mu=o["mu"],
-        cphi=o["cphi"], sphi=o["sphi"], dcen=o["dcen"], jz=o["jz"],
-        kr=o["kr"], alive=o["alive"] == 1, mode=o["mode"], flag=o["flag"],
-        jn=o["jn"], kn=o["kn"], it_used=int(o["it"].max()),
-        ekill=torch.sum(o["ekill"]), esct=torch.sum(o["esct"]),
-        epair=torch.sum(o["epair"]), sct_cnt=o["cnt"],
-        tally=tally, iglog=o["iglog"],
-        delog=o["delog"],
-    )
+    if not prep.shared:
+        GLOBAL_LAUNCHES += 1
+    return _result(prep)

@@ -1,6 +1,8 @@
 """The flight kernel, in its inline-scatter and strat modes, with and
-without pair_switch, and in its windowed mode above 1024 zones, against
-its plain PyTorch version on a CUDA card.
+without pair_switch, in its windowed mode above 1024 zones, with its
+tables in shared and in global memory, and over several blocks that end
+inside a tile, against its plain PyTorch version on a CUDA card; and its
+SIMT counters against the plain version's lane-iterations.
 
 These tests need the card and skip without one. They import neither jax
 nor the JAX package, so they also run on a machine without jax:
@@ -209,3 +211,105 @@ def test_windowed_mode_lane_for_lane_and_repeatable(card, inline):
     k2 = _run(flight.flight_step, args, tables, seeds, 64, **kw)
     for a, b in zip(k, k2):
         assert torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b
+
+
+def _plan(tables, nz, nr, inline=True, pairs=False):
+    return flight.plan_block(nz, nr, tables.sig.shape[1],
+                             tables.kgg.shape[1], tables.cdf.shape[1],
+                             inline, pairs)
+
+
+@pytest.mark.parametrize("placement,nz,nr", [("shared", NZ, NR),
+                                             ("global", 32, 32)])
+def test_table_placement_lane_for_lane(card, placement, nz, nr):
+    """Both table placements: 4x3 zones stage their tables in shared
+    memory, 32x32 zones (1024, resident) read them from global memory.
+    One iteration integers exact and floats rtol 1e-5; 64 iterations >= 99%
+    identical lanes; two launches bitwise equal; the global-table launch
+    count rises only for the global placement."""
+    args, tables, seeds = _inputs(card, seed=5, nz=nz, nr=nr)
+    flight.build()
+    assert flight.table_placement(nz, nr, N_VOL, N_GG, NUM_NT, True,
+                                  False)[0] == placement
+    assert _plan(tables, nz, nr).shared == (placement == "shared")
+    before = flight.GLOBAL_LAUNCHES
+    k = _run(flight.flight_step, args, tables, seeds, 1, nz=nz, nr=nr)
+    assert flight.GLOBAL_LAUNCHES == before + (placement == "global")
+    p = _run(flight.flight_step_reference, args, tables, seeds, 1, nz=nz,
+             nr=nr)
+    for name in INTS:
+        assert torch.equal(getattr(k, name).long(),
+                           getattr(p, name).long()), name
+    for name in FLOATS:
+        torch.testing.assert_close(getattr(k, name), getattr(p, name),
+                                   rtol=1e-5, atol=1e-6)
+    k = _run(flight.flight_step, args, tables, seeds, 64, nz=nz, nr=nr)
+    p = _run(flight.flight_step_reference, args, tables, seeds, 64, nz=nz,
+             nr=nr)
+    same = torch.ones(N, dtype=torch.bool, device=card)
+    for name in INTS:
+        same &= getattr(k, name).long() == getattr(p, name).long()
+    assert float(same.float().mean()) >= 0.99
+    k2 = _run(flight.flight_step, args, tables, seeds, 64, nz=nz, nr=nr)
+    for a, b in zip(k, k2):
+        assert torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b
+
+
+def test_slots_span_several_block_ranges(card):
+    """16 tiles whose live photons fill each tile only in part, the last
+    tile only in its first quarter: several blocks, each ending inside a
+    tile (blocks smaller than a tile). One iteration integers exact and
+    floats rtol 1e-5, 32 iterations >= 99% identical lanes, the tallies
+    within 1e-3 of their largest zone."""
+    n = 16 * flight.TILE
+    rng = np.random.default_rng(6)
+    args, tables, seeds = _inputs(card, seed=6)
+    big = [torch.cat([a] * 4) for a in args]   # the 4-tile inputs, 4 times
+    alive = torch.as_tensor(rng.uniform(size=n) < 0.6, device=card)
+    alive[-flight.TILE + flight.TILE // 4:] = False
+    big[FIELDS.index("alive")] = alive
+    seeds = torch.as_tensor(rng.integers(-2**31, 2**31, n // flight.TILE),
+                            dtype=torch.int32, device=card)
+    flight.build()
+    plan = _plan(tables, NZ, NR)
+    assert n // plan.threads > 1 and plan.threads % flight.TILE != 0
+    k = _run(flight.flight_step, big, tables, seeds, 1)
+    p = _run(flight.flight_step_reference, big, tables, seeds, 1)
+    for name in INTS:
+        assert torch.equal(getattr(k, name).long(),
+                           getattr(p, name).long()), name
+    for name in FLOATS:
+        torch.testing.assert_close(getattr(k, name), getattr(p, name),
+                                   rtol=1e-5, atol=1e-6)
+    k = _run(flight.flight_step, big, tables, seeds, 32)
+    p = _run(flight.flight_step_reference, big, tables, seeds, 32)
+    same = torch.ones(n, dtype=torch.bool, device=card)
+    for name in INTS:
+        same &= getattr(k, name).long() == getattr(p, name).long()
+    assert float(same.float().mean()) >= 0.99
+    assert not bool(k.alive[-flight.TILE + flight.TILE // 4:].any())
+    torch.testing.assert_close(k.tally[0], p.tally[0], rtol=1e-3,
+                               atol=1e-3 * float(p.tally[0].abs().max()))
+
+
+def test_simt_counters_add_up_to_the_plain_lane_iterations(card):
+    """The kernel's lane-iteration counter over its blocks equals the
+    plain version's lane-iterations, the sum over iterations m < 12 of the
+    lanes live after m iterations; each warp pass runs at most 32 of them,
+    there is one row of counters per warp, and it_used is the plain
+    version's."""
+    args, tables, seeds = _inputs(card, seed=7)
+    iters = 12
+    k = _run(flight.flight_step, args, tables, seeds, iters)
+    plain = 0
+    for m in range(iters):
+        p = _run(flight.flight_step_reference, args, tables, seeds, m)
+        live = (p.alive & (p.flag == flight.FLAG_NONE)
+                & ((p.mode != flight.MODE_FLY) | (p.dcen > 0.0)))
+        plain += int(live.sum())
+    c = k.counters.sum(dim=0, dtype=torch.int64).tolist()
+    assert c[0] == plain > 0
+    assert c[0] <= 32 * (c[1] + c[2] + c[3])
+    assert tuple(k.counters.shape) == (N // 32, flight.N_COUNT)
+    p = _run(flight.flight_step_reference, args, tables, seeds, iters)
+    assert k.it_used == p.it_used

@@ -76,11 +76,38 @@ Phases (any failure raises and the script exits non-zero):
    escapes, bitwise-repeatable tallies (40x30), and per step the rounds,
    the FLAG_WINDOW freezes and the stragglers sent to census, with the
    card's peak memory; then the 32x32 grid (the resident mode with its
-   tables in global memory) for 2 steps.
+   tables in global memory) for 2 steps;
+7. the reference-format decks (``compton2d_tpu_torch.decks``), written in
+   the reference's input format and loaded by the port's legacy importer
+   at full width, 131072 slots and nst 60000, 2 warm-up and 6 timed steps
+   each through ``Simulation.step()``: ``disk_deck`` (``small_corona``'s
+   8x4 corona above a reflecting disk, cr_sent 3, a flare, adaptive dt)
+   with, every step, the audit within 2e-3 once its reflection share
+   sum(ed_ref) E / avail is added to 1 (the reference's audit counts a
+   reflected photon twice), lower reflections, outer-disk records and a
+   positive ed_ref, and the next dt: dt0 after the first step, then the
+   larger of that step's FP ladder dt_new (read from the run) and
+   dt_min; the flare's turb_lev boost at its peak step and zone; tallies
+   bitwise repeatable over 2 steps from the seed; the disk deck again at
+   mcdt 3 (dt0 = 3 dt_min) for 2 + 2 steps with the same gates, where
+   the ladder's dt lies above dt_min and some step must apply it; and
+   ``ec_deck`` (``blazar_jet``'s 10x5 blob lit by a diskgen file in a
+   window that opens at 2 dt0) with the audit within 5e-3, the file
+   input 0 in the first two steps and positive after, and energy escaping
+   upward once it is on; for each the ms/step, histories/s, rounds/step,
+   B1 launches per step, FP substeps and Te per step. Then the flight
+   kernel against its plain version, as in phase 2, on each deck's own
+   inputs of its first timed step's first round (the disk deck's 8x4
+   tables in shared memory, the blazar blob's 10x5 ones in global
+   memory), with its times and bound at that shape.
 
 The first five phases' launches of the path-shaped modes read their
 tables from shared memory (checked with the wrapper's count of
-global-table launches), the windowed and 32x32 ones from global memory.
+global-table launches), the windowed and 32x32 ones from global memory;
+in phase 7 the disk deck's from shared memory (counted in the 8x4 entry
+of the kernels line) and the blazar blob's (10x5 zones, 252,064 bytes)
+from global memory, in an entry of their own, timed on that deck's
+inputs.
 
 Each kernel's wrapper counts its launches; the counts are set to 0 just
 before each main path and read just after. The line before the last is a
@@ -104,7 +131,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from compton2d_tpu_torch import run_mrk421
+from compton2d_tpu_torch import decks, driver, run_mrk421
 from compton2d_tpu_torch.config import RunConfig
 from compton2d_tpu_torch.constants import SIGMA_THOMSON
 from compton2d_tpu_torch.examples import small_corona
@@ -128,6 +155,8 @@ LARGE_NZ, LARGE_NR, LARGE_SLOTS, LARGE_NST = 99, 99, 1 << 19, 240000
 GRID_NZ, GRID_NR = 40, 30
 RESIDENT_NZ, RESIDENT_NR = 32, 32   # the largest resident grid
 LARGE_TIMED, LARGE_WARM, GRID_STEPS = 3, 1, 2
+# the reference-format decks (compton2d_tpu_torch.decks)
+DECK_WARM, DECK_TIMED, DECK_REPEAT = 2, 6, 2
 AUDIT_TOL = 2e-3     # |balance - 1|, the JAX tests' bound
 MRK_AUDIT_TOL = 5e-3  # the bound of tests/test_mrk421.py
 MAX_TRIES = RunConfig().max_scatter_tries
@@ -234,12 +263,14 @@ LANE_FLOATS = ("e", "w", "r", "z", "mu", "cphi", "sphi", "dcen")
 
 
 def run_flight(fn, photons, tables, seeds, max_iters, nz=NZ, nr=NR,
-               inline=True, pairs=False):
+               inline=True, pairs=False, weight_floor=1e-10,
+               max_tries=MAX_TRIES):
     p = photons
     return fn(p["e"], p["w"], p["w0"], p["r"], p["z"], p["mu"], p["cphi"],
               p["sphi"], p["dcen"], p["jz"], p["kr"], p["alive"], tables,
-              seeds, nz=nz, nr=nr, weight_floor=1e-10, max_iters=max_iters,
-              max_tries=MAX_TRIES, inline_scatter=inline, pair_switch=pairs)
+              seeds, nz=nz, nr=nr, weight_floor=weight_floor,
+              max_iters=max_iters, max_tries=max_tries,
+              inline_scatter=inline, pair_switch=pairs)
 
 
 def flight_bound(photons, tables, res, nz: int, nr: int,
@@ -397,6 +428,17 @@ def phase_kernel(device, label: str, nz: int, nr: int, inline: bool,
     1024 zones, the windowed mode on inputs zone-sorted as on the path.
     The tables must take ``placement``."""
     photons, tables, seeds = path_inputs(device, nz, nr, **shapes)
+    return check_kernel(device, label, photons, tables, seeds, max_iters,
+                        dict(nz=nz, nr=nr, inline=inline, pairs=pairs),
+                        placement)
+
+
+def check_kernel(device, label: str, photons, tables, seeds, max_iters: int,
+                 kw: dict, placement: str) -> dict:
+    """The kernel against its plain version on these inputs, with
+    run_flight's keywords ``kw``: (a) one iteration, (b) ``max_iters``,
+    (c) two launches bitwise equal, (d) times and the bound."""
+    nz, nr, inline, pairs = kw["nz"], kw["nr"], kw["inline"], kw["pairs"]
     n = photons["e"].shape[0]
     plan = block_plan(tables, nz, nr, inline, pairs)
     staged = flight.table_placement(
@@ -411,7 +453,6 @@ def phase_kernel(device, label: str, nz: int, nr: int, inline: bool,
         f"memory")
     win_z = flight.window_z(nz, nr)
     e_scale = float(torch.sum(photons["w"]))   # total input energy
-    kw = dict(nz=nz, nr=nr, inline=inline, pairs=pairs)
 
     # (a) one iteration: integers exact, floats rtol 1e-5 (atol 1e-6 for
     # values near zero); tallies and sums to 1e-5 of their scale
@@ -1144,6 +1185,271 @@ def phase_large(device, card: str) -> Tuple[int, int]:
     return launches, global_launches
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the reference-format decks
+# ---------------------------------------------------------------------------
+def audit_share(sim) -> Tuple[dict, float]:
+    """The last step's audit and its reflection share sum(ed_ref) E /
+    avail: a reflected photon's weight before reflection is in erlk_lower
+    and its weight after it flies on, so the audit, as the reference's,
+    counts ed_ref twice."""
+    a = sim.energy_audit()
+    avail = a["input"] - a["src_lost"] + a["scatter_gain"] - a["rr"]
+    ed_ref = float(sim.last_outputs.tallies.ed_ref.sum())
+    return a, ed_ref * sim.scales.E / avail
+
+
+def drive_deck(sim, steps: int, record: list):
+    """Step the sim; per step, the SourceStatic it used, the dt it took
+    (the host mirror, read back under adaptive dt) and the zone
+    temperatures it left, into ``record``."""
+    outs = []
+    for _ in range(steps):
+        dt = sim._host_dt if not sim._clock_dirty else float(sim.state.dt)
+        outs.append(sim.step())
+        record.append((sim.src_static, dt, sim.state.zones.tea))
+    return outs
+
+
+def check_disk_step(name, i, out, sim, a, share, dt_used, dt_next, dt0,
+                    dt_min, dt_new) -> str:
+    """The disk deck's gates of step ``i``. Adaptive dt: the step after
+    ncycle 0 keeps dt0; from ncycle 1 the next dt is the larger of the FP
+    ladder's dt_new of this step (read from the run) and dt_min."""
+    t = out.tallies
+    line = (f"{name} step {i}: balance {a['balance']:.7f} reflection share "
+            f"{share:.7f} rounds {int(t.trk_rounds)} lower reflections "
+            f"{int(t.n_reflect_lower)} disk records {int(t.n_reflect_disk)}"
+            f" dt {dt_used:.6e} s -> {dt_next:.6e} s (ladder {dt_new:.6e}"
+            f" s, dT_max {float(out.dT_max):.4f})")
+    if not abs(a["balance"] - (1.0 + share)) < AUDIT_TOL:
+        raise AssertionError(f"reflection-corrected audit: {line}")
+    if not (share > 0.0 and int(t.n_reflect_lower) > 0
+            and int(t.n_reflect_disk) > 0):
+        raise AssertionError(f"no reflection: {line}")
+    want = dt0 if i == 0 else max(dt_new, dt_min)
+    if not abs(dt_next - want) <= 1e-6 * want:
+        raise AssertionError(f"adaptive dt {dt_next:.6e}, expected "
+                             f"{want:.6e} (dt_min {dt_min:.6e}): {line}")
+    return line
+
+
+def check_ec_step(name, i, out, sim, a, src, dt_used, tea, t_start,
+                  t_open) -> Tuple[str, bool]:
+    t = out.tallies
+    file_in = dt_used * float(torch.sum(sim.grid.area_lower
+                                        * src.flux_lower))
+    up = float(t.erlk_upper.sum()) * sim.scales.E
+    line = (f"{name} step {i}: balance {a['balance']:.7f} file input "
+            f"{file_in * sim.scales.E:.4e} erg erlk_upper {up:.4e} erg "
+            f"rounds {int(t.trk_rounds)} FP substeps {int(out.fp_substeps)}"
+            f" Te {float(tea.min()):.2f}-{float(tea.max()):.2f} keV")
+    if not abs(a["balance"] - 1.0) < MRK_AUDIT_TOL:
+        raise AssertionError(f"audit: {line}")
+    opened = t_start + 0.5 * dt_used >= t_open
+    if opened != (file_in > 0.0):
+        raise AssertionError(f"file input against t0 {t_open:.6e}: {line}")
+    if opened and not up > 0.0:
+        raise AssertionError(f"nothing escaped upward: {line}")
+    return line, opened
+
+
+# the decks' runs in phase 7: (label, deck, deck options, timed steps,
+# whether the flight kernel is checked on the run's own inputs). The
+# disk deck at mcdt 3 starts dt0 at 3 dt_min, so that the FP ladder's dt
+# lies above the floor and is what the steps apply
+DECK_RUNS = (
+    ("disk_deck", "disk_deck", {}, DECK_TIMED, True),
+    ("disk_deck at mcdt 3", "disk_deck", {"mcdt": 3.0}, 2, False),
+    ("ec_deck", "ec_deck", {}, DECK_TIMED, True),
+)
+
+
+def phase_decks(device, card: str) -> Tuple[int, int, dict]:
+    """disk_deck and ec_deck, written in the reference's input format and
+    loaded by the legacy importer, for DECK_WARM + DECK_TIMED steps each
+    with every gate of their steps, and the disk deck again at mcdt 3 for
+    DECK_WARM + 2 steps; then the flight kernel against its plain version
+    on each deck's own inputs of its first timed step's first round.
+    Returns the kernel's launches on the disk deck's runs (tables in
+    shared memory) and on the blazar blob's (10x5 tables in global
+    memory), and the blazar blob's kernel check (check_kernel's dict)."""
+    plain_runs = [0]
+    reference = flight.flight_step_reference
+    flare_zones, fp_step = driver.flare_zones, driver.fp_step
+    kernel_step = flight.flight_step
+    boosts, dt_new, captured = [], [], {}
+    capture = {"as": None}
+
+    def counted_reference(*a, **k):
+        plain_runs[0] += 1
+        return reference(*a, **k)
+
+    def recorded(zones, grid, fl, t, scales):
+        out = flare_zones(zones, grid, fl, t, scales)
+        if fl.enabled:
+            boosts.append((float(t), (out.turb_lev - zones.turb_lev).cpu()))
+        return out
+
+    def recorded_fp(*a, **k):
+        res = fp_step(*a, **k)
+        dt_new.append(float(res.dt_new))
+        return res
+
+    def captured_step(*a, **k):
+        # the first round of the step that capture["as"] names: its inputs
+        # as the path hands them to the wrapper
+        if capture["as"] is not None:
+            names = ("e", "w", "w0", "r", "z", "mu", "cphi", "sphi", "dcen",
+                     "jz", "kr", "alive")
+            captured[capture["as"]] = (
+                {f: x.clone() for f, x in zip(names, a[:12])}, a[12],
+                a[13].clone(), dict(k))
+            capture["as"] = None
+        return kernel_step(*a, **k)
+
+    flight.flight_step_reference = counted_reference
+    flight.flight_step = captured_step
+    driver.flare_zones, driver.fp_step = recorded, recorded_fp
+    launches = {"disk_deck": 0, "ec_deck": 0}
+    try:
+        for label, name, opts, n_timed, check in DECK_RUNS:
+            sim = decks.deck_sim(name, device, **opts)
+            dt0 = float(sim.state.dt)
+            record: list = []
+            boosts.clear()
+            dt_new.clear()
+            reset_launches()
+            outs = drive_deck(sim, DECK_WARM, record)
+            torch.cuda.synchronize()
+            capture["as"] = label if check else None
+            t0 = time.perf_counter()
+            outs += drive_deck(sim, n_timed, record)
+            torch.cuda.synchronize()
+            elapsed = time.perf_counter() - t0
+            n_launch, n_global = flight.LAUNCHES, flight.GLOBAL_LAUNCHES
+            placed = (n_global == 0) if name == "disk_deck" \
+                else (n_global == n_launch)
+            if not (n_launch > 0 and placed and plain_runs[0] == 0
+                    and flight.STRAT_LAUNCHES == flight.PAIR_LAUNCHES
+                    == flight.WINDOW_LAUNCHES == 0):
+                raise AssertionError(
+                    f"{label} launches: inline {n_launch} global-table "
+                    f"{n_global} strat {flight.STRAT_LAUNCHES} pair "
+                    f"{flight.PAIR_LAUNCHES} windowed "
+                    f"{flight.WINDOW_LAUNCHES} plain {plain_runs[0]}")
+            if state_devices(sim.state) != {"cuda"}:
+                raise AssertionError(f"{label}: state tensors off the card")
+            g = sim.grid
+            dt_min = (min(float(torch.min(torch.diff(g.r_edges))),
+                          float(g.dz)) * sim.scales.L / 2.99792458e10)
+            if len(dt_new) != len(outs):
+                raise AssertionError(f"{label}: {len(dt_new)} FP solves "
+                                     f"in {len(outs)} steps")
+            t_start, n_off, n_ladder = 0.0, 0, 0
+            for i, out in enumerate(outs):
+                sim.last_outputs = out
+                a, share = audit_share(sim)
+                src, dt_used, tea = record[i]
+                if name == "disk_deck":
+                    dt_next = (record[i + 1][1] if i + 1 < len(record)
+                               else float(sim.state.dt))
+                    log(check_disk_step(label, i, out, sim, a, share,
+                                        dt_used, dt_next, dt0, dt_min,
+                                        dt_new[i]))
+                    n_ladder += i >= 1 and dt_new[i] > dt_min * (1 + 1e-6)
+                else:
+                    line, opened = check_ec_step(
+                        label, i, out, sim, a, src, dt_used, tea, t_start,
+                        float(sim.window_sources.t0[0]))
+                    log(line)
+                    n_off += not opened
+                t_start += dt_used
+            if name == "ec_deck" and n_off != 2:
+                raise AssertionError(f"ec_deck: {n_off} steps without the "
+                                     "file, expected the first 2")
+            if opts and n_ladder == 0:
+                raise AssertionError(f"{label}: no step applied the FP "
+                                     "ladder's dt above dt_min")
+            tea = sim.state.zones.tea
+            if not bool(torch.all(torch.isfinite(tea))):
+                raise AssertionError(f"{label}: non-finite zone "
+                                     "temperatures")
+            timed = outs[DECK_WARM:]
+            histories = sum(int(o.n_tracked) for o in timed)
+            log(f"{label} on {card}: {1e3 * elapsed / n_timed:.3f} "
+                f"ms/step, {histories / elapsed:.6e} histories/s, "
+                f"{per_step(timed, 'trk_rounds'):.2f} rounds/step, "
+                f"{n_launch / len(outs):.2f} B1 launches/step "
+                f"({'global' if n_global else 'shared'} tables), "
+                f"{per_step(timed, 'n_reflect_lower'):.1f} lower "
+                f"reflections/step, {per_step(timed, 'n_reflect_disk'):.1f} "
+                f"disk records/step, FP substeps/step "
+                f"{sum(int(o.fp_substeps) for o in timed) / n_timed:.2f}, "
+                f"{n_ladder} steps on the ladder above dt_min "
+                f"({n_timed} timed steps after {DECK_WARM} warm-up); "
+                f"{sim.summary()}")
+            launches[name] += n_launch
+            if label == "disk_deck":
+                check_flare(sim, boosts)
+                check_deck_repeatable(name, device, outs)
+            del sim, outs, timed
+    finally:
+        flight.flight_step_reference = reference
+        flight.flight_step = kernel_step
+        driver.flare_zones, driver.fp_step = flare_zones, fp_step
+    # the kernel on each deck's own inputs (launches outside the counted
+    # runs): the disk deck's 8x4 tables in shared memory, the blazar
+    # blob's 10x5 ones in global memory
+    checks = {}
+    for label, placement in (("disk_deck", "shared"), ("ec_deck", "global")):
+        photons, tables, seeds, k = captured[label]
+        kw = dict(nz=k["nz"], nr=k["nr"], inline=k["inline_scatter"],
+                  pairs=k["pair_switch"], weight_floor=k["weight_floor"],
+                  max_tries=k["max_tries"])
+        checks[label] = check_kernel(device, f"{label} kernel", photons,
+                                     tables, seeds, k["max_iters"], kw,
+                                     placement)
+        del photons, tables, seeds
+    return launches["disk_deck"], launches["ec_deck"], checks["ec_deck"]
+
+
+def check_flare(sim, boosts: list) -> None:
+    """The flare's turb_lev boost reaches the FP solve: largest at the step
+    that starts nearest t_flare, in a zone next to the flare's centre."""
+    fl = sim.cfg.physics.flare
+    times = [t for t, _ in boosts]
+    peak = int(np.argmin([abs(t - fl.t_flare) for t in times]))
+    tops = [float(b.max()) for _, b in boosts]
+    zone = np.unravel_index(int(torch.argmax(boosts[peak][1])),
+                            tuple(boosts[peak][1].shape))
+    g = sim.cfg.grid
+    r_mid = (np.arange(g.nr) + 0.5) * g.r_max / g.nr
+    z_mid = (np.arange(g.nz) + 0.5) * g.z_max / g.nz
+    near_r = np.abs(r_mid - fl.r_flare).min()
+    near_z = np.abs(z_mid - fl.z_flare).min()
+    log(f"flare: boosts {['%.4f' % x for x in tops]} at t "
+        f"{['%.4e' % t for t in times]} s; peak step {peak} zone {zone}")
+    if not (tops[peak] == max(tops) and tops[peak] > 0.05
+            and abs(r_mid[zone[1]] - fl.r_flare) == near_r
+            and abs(z_mid[zone[0]] - fl.z_flare) == near_z):
+        raise AssertionError("the flare's boost is not at its peak step "
+                             "and zone")
+
+
+def check_deck_repeatable(name: str, device, outs) -> None:
+    sim = decks.deck_sim(name, device)
+    for i in range(DECK_REPEAT):
+        o2 = sim.step()
+        for f in o2.tallies._fields:
+            if not torch.equal(getattr(o2.tallies, f),
+                               getattr(outs[i].tallies, f)):
+                raise AssertionError(f"{name} step {i}: tally {f} not "
+                                     "repeatable")
+    log(f"{name}: tallies bitwise repeatable from the seed "
+        f"({DECK_REPEAT} steps)")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1177,12 +1483,13 @@ def main() -> int:
     launches_strat = phase_mrk421(device, card)
     launches_pairs, launches_pairs_strat = phase_pairs(device, card)
     launches_window, launches_global = phase_large(device, card)
+    launches_disk, launches_ec, k_ec = phase_decks(device, card)
 
     replaces = "compton2d_tpu/transport/flight_pallas2.py:347"
     log(json.dumps({"kernels": [
         {"name": "flight_kernel", "route": "cuda",
          "source": "compton2d_tpu_torch/csrc/flight.cu",
-         "replaces": replaces, "launches": launches_inline,
+         "replaces": replaces, "launches": launches_inline + launches_disk,
          "library_ms": None, **k_inline},
         {"name": "flight_kernel_strat", "route": "cuda",
          "source": "compton2d_tpu_torch/csrc/flight.cu",
@@ -1204,6 +1511,10 @@ def main() -> int:
          "source": "compton2d_tpu_torch/csrc/flight.cu",
          "replaces": replaces, "launches": launches_global,
          "library_ms": None, **k_global},
+        {"name": "flight_kernel_global_tables_10x5", "route": "cuda",
+         "source": "compton2d_tpu_torch/csrc/flight.cu",
+         "replaces": replaces, "launches": launches_ec,
+         "library_ms": None, **k_ec},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

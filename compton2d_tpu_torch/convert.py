@@ -5,8 +5,11 @@ arrive as flat dicts of numpy arrays keyed by dotted field names
 (``"zones.tea"``, ``"photons.e"``, ``"gamma_bar.log_theta"``, ...), as
 :func:`flatten` makes them from any NamedTuple whose leaves
 ``np.asarray`` accepts. :func:`from_reference` rebuilds the port's
-NamedTuples on a device, so both packages can run from the same state.
-This module never imports jax.
+NamedTuples on a device, so both packages can run from the same state;
+the spectrum bank comes across inside the ``SourceStatic`` (the
+reference's quantile table, ``spec_inv``, has no counterpart) and
+:func:`track_reflection` takes the reflection tables of a reference
+``TrackContext``. This module never imports jax.
 """
 from __future__ import annotations
 
@@ -90,3 +93,13 @@ def from_reference(
         None if pair_tables is None
         else _build(PairTables, pair_tables, "", dev),
     )
+
+
+def track_reflection(ctx: Dict[str, np.ndarray], device="cuda"
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The reflection tables of a flattened reference ``TrackContext``
+    (``e_ref``, ``p_ref_t``, ``w_abs_t``: the tables the port's
+    ``TrackContext`` carries under the same names) on ``device``."""
+    dev = torch.device(device)
+    return tuple(_tensor(ctx[name], dev)
+                 for name in ("e_ref", "p_ref_t", "w_abs_t"))

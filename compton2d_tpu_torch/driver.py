@@ -5,15 +5,17 @@ One step runs the reference's phase order on one device: census clock
 reset, zone pass (B field, emissivities, budget), census roulette, the
 zone sort of the census (grids above 1024 zones), the pair fields from
 the census (pair_switch), emission, tracking through the flight kernel,
-census tallies, the Fokker-Planck electron (and positron) update and the
-time advance. dt is constant, as in the reference's active code.
+census tallies, the Fokker-Planck electron (and positron) update (with a
+coronal flare's boost of the zones it sees) and the time advance. dt is
+constant, as in the reference's active code, unless ``run.adaptive_dt``
+applies the FP solve's dt ladder.
 
-The port covers a part of the reference's options: thermal boundaries,
-synchrotron volume emission and shock injection, census roulette,
-stratified tail splitting and gamma-gamma pair physics. ``Simulation``
-raises ``NotImplementedError`` naming the option for anything outside it:
-boundary reflection (cr_sent != 0), device meshes, file-spectrum
-boundaries, the Coulomb FP drift, adaptive dt, coronal flares, grid edges
+The port covers the reference's options on one device: thermal and
+file-spectrum boundaries with their time windows, Compton reflection
+(cr_sent 1-4), synchrotron volume emission and shock injection, census
+roulette, stratified tail splitting, gamma-gamma pair physics, coronal
+flares and adaptive dt. ``Simulation`` raises ``NotImplementedError``
+naming the option for device meshes, the Coulomb FP drift, grid edges
 above 127 zones and checkpoints.
 
 Run-level outputs (``attach_outputs``): the escaping spectrum, light
@@ -37,6 +39,7 @@ from compton2d_tpu_torch.fp.update import fp_step
 from compton2d_tpu_torch.grid import Grid, initial_dt, make_grid
 from compton2d_tpu_torch.io.checkpoint import WalltimeGuard
 from compton2d_tpu_torch.io.events import EventFileWriter
+from compton2d_tpu_torch.io.legacy import external_spectrum
 from compton2d_tpu_torch.io.outputs import OutputAccumulator
 from compton2d_tpu_torch.physics.compton import SIGMA_T, zone_sigma_table
 from compton2d_tpu_torch.physics.electron_dist import gnt_grid
@@ -71,9 +74,6 @@ from compton2d_tpu_torch.transport.tracking import (
     transport_step,
 )
 
-SPEC_INV_M = 4096   # the reference's quantile-bank width (unused rows)
-
-
 class StepOutputs(NamedTuple):
     """Per-step results (fields as in the reference)."""
 
@@ -91,26 +91,55 @@ class StepOutputs(NamedTuple):
 
 
 class WindowSources(NamedTuple):
-    """Per-time-window boundary sources. The reference also keeps an
-    "off" variant per window that zeroes file-spectrum flux before the
-    window starts; with thermal boundaries only, there is nothing to
-    switch off."""
+    """Per-time-window boundary sources sharing one spectrum bank. The
+    ``off`` variant of a window zeroes its file flux: a file boundary
+    sources only once time + dt/2 >= t0 (imcgen2d.f:127,139,156,173)."""
 
-    t1: np.ndarray                              # (n_windows,) end times [s]
-    sources: Tuple[sourcing.SourceStatic, ...]
+    t0: np.ndarray                              # (n_windows,) start [s]
+    t1: np.ndarray                              # (n_windows,) end [s]
+    on: Tuple[sourcing.SourceStatic, ...]
+    off: Tuple[sourcing.SourceStatic, ...]
 
     def select(self, time: float, dt: float, ncycle: int):
         """First window with t1 > time + dt/2, clamped to the last
         (imcgen2d.f:111-120; ncycle 0 uses window 1)."""
-        if ncycle == 0:
-            return self.sources[0]
-        idx = int(np.searchsorted(self.t1, time + 0.5 * dt, side="right"))
-        return self.sources[min(idx, len(self.sources) - 1)]
+        t_avg = time + 0.5 * dt
+        idx = 0 if ncycle == 0 else min(
+            int(np.searchsorted(self.t1, t_avg, side="right")),
+            len(self.on) - 1)
+        return self.on[idx] if t_avg >= float(self.t0[idx]) \
+            else self.off[idx]
+
+
+def spectrum_bank(cfg: SimConfig, scales: Scales, names):
+    """Each distinct spectrum file read once (file_sp,
+    imcsurf2d_para.f:544-685) into a padded (n_spec, nf) bank on the
+    host: energies, the sampling CDF (padded with 1) and the flux in
+    scaled E/(L^2 s). Row 0 is the dummy "no file" row."""
+    rows = []
+    for nm in names:
+        e_file, _, p_file, int_file = external_spectrum(
+            nm, cfg.source.external)
+        rows.append((np.asarray(e_file, np.float32),
+                     np.asarray(p_file[:len(e_file)], np.float32),
+                     float(int_file) * scales.L2 / scales.E))
+    nf = max([2] + [len(r[0]) for r in rows])
+    spec_e = np.ones((len(rows) + 1, nf), np.float32)
+    spec_cdf = np.ones((len(rows) + 1, nf), np.float32)
+    spec_cdf[0, 0] = 0.0
+    flux = np.zeros((len(rows) + 1,), np.float32)
+    for i, (e, p, fl) in enumerate(rows, start=1):
+        spec_e[i, :len(e)] = e
+        spec_e[i, len(e):] = e[-1]
+        spec_cdf[i, :len(p)] = p
+        flux[i] = fl
+    return spec_e, spec_cdf, flux
 
 
 def build_window_sources(cfg: SimConfig, scales: Scales,
                          device="cpu") -> WindowSources:
-    """Per-window SourceStatic for thermal (Planck) boundaries."""
+    """Per-window SourceStatic (reader.f:222-283): per-ring temperatures
+    and spectrum files, with the star dilution of the upper boundary."""
     g = cfg.grid
     windows = cfg.windows or (
         TimeWindow(
@@ -119,34 +148,60 @@ def build_window_sources(cfg: SimConfig, scales: Scales,
             tbb_inner=(0.0,) * g.nz, tbb_outer=(0.0,) * g.nz,
         ),
     )
+    names: list = []
+    for w in windows:
+        for nm in tuple(w.lower_spectra) + tuple(w.upper_spectra):
+            if nm and nm not in names:
+                names.append(nm)
+    spec_e, spec_cdf, flux = spectrum_bank(cfg, scales, names)
+    row_of = {nm: i + 1 for i, nm in enumerate(names)}
     star = cfg.physics
     dilution = (star.r_star / star.dist_star) ** 2 if star.star_switch else 1.0
 
     def f(a):
         return torch.as_tensor(np.asarray(a, np.float32), device=device)
 
-    spec_cdf = np.ones((1, 2), np.float32)
-    spec_cdf[0, 0] = 0.0
-    sources = []
+    def ring_rows(tbbs, specs, n):
+        idx = np.zeros((n,), np.int32)
+        fl = np.zeros((n,), np.float32)
+        specs = tuple(specs) + (None,) * n
+        for k in range(n):
+            if tbbs[k] < 0.0 and specs[k]:
+                idx[k] = row_of[specs[k]]
+                fl[k] = flux[idx[k]]
+        return idx, fl
+
+    bank_e, bank_cdf = f(spec_e), f(spec_cdf)
+    on, off = [], []
     for w in windows:
-        sources.append(sourcing.SourceStatic(
+        sl, fl_l = ring_rows(w.tbb_lower, w.lower_spectra, g.nr)
+        su, fl_u = ring_rows(w.tbb_upper, w.upper_spectra, g.nr)
+        src = sourcing.SourceStatic(
             tbb_lower=f(w.tbb_lower), tbb_upper=f(w.tbb_upper),
             tbb_inner=f(w.tbb_inner), tbb_outer=f(w.tbb_outer),
-            spec_e=f(np.ones((1, 2))), spec_cdf=f(spec_cdf),
-            spec_inv=f(np.zeros((1, SPEC_INV_M))),
-            spec_lower=torch.zeros(g.nr, dtype=torch.int32, device=device),
-            spec_upper=torch.zeros(g.nr, dtype=torch.int32, device=device),
-            flux_lower=f(np.zeros(g.nr)), flux_upper=f(np.zeros(g.nr)),
+            spec_e=bank_e, spec_cdf=bank_cdf,
+            spec_lower=torch.as_tensor(sl, device=device),
+            spec_upper=torch.as_tensor(su, device=device),
+            flux_lower=f(fl_l), flux_upper=f(fl_u),
             star_dilution=f(dilution),
-        ))
+        )
+        on.append(src)
+        off.append(src._replace(flux_lower=f(np.zeros(g.nr)),
+                                flux_upper=f(np.zeros(g.nr)))
+                   if (fl_l.any() or fl_u.any()) else src)
     return WindowSources(
+        t0=np.asarray([w.t0 for w in windows], float),
         t1=np.asarray([w.t1 for w in windows], float),
-        sources=tuple(sources),
+        on=tuple(on), off=tuple(off),
     )
 
 
 def _estimate_energy_scale(cfg: SimConfig, zone_init: ZoneInit) -> float:
-    """Energy unit E0 so per-step scaled energies sit around 1e6."""
+    """Energy unit E0 so per-step scaled energies sit around 1e6. A file
+    ring (tbb < 0) counts with its file's flux: the reference takes the
+    sentinel's |tbb| as a 1 keV blackbody, which puts a blazar deck's
+    scaled weights near 1e-17, where float32 products underflow (its
+    census roulette's log bisection among them)."""
     g = cfg.grid
     dt0 = (cfg.run.mcdt * min(g.r_max / g.nr, g.z_max / g.nz)
            / cfg.physics.injection.v)
@@ -154,8 +209,12 @@ def _estimate_energy_scale(cfg: SimConfig, zone_init: ZoneInit) -> float:
     tbb_max = 0.0
     for w in cfg.windows:
         for arr in (w.tbb_lower, w.tbb_upper, w.tbb_inner, w.tbb_outer):
-            tbb_max = max(tbb_max, max((abs(t) for t in arr), default=0.0))
+            tbb_max = max(tbb_max, max(arr, default=0.0))
     bb = cn.SIGMA_SB_KEV * tbb_max**4 * area * dt0
+    files = {nm for w in cfg.windows
+             for nm in tuple(w.lower_spectra) + tuple(w.upper_spectra) if nm}
+    flux = max((external_spectrum(nm, cfg.source.external)[3]
+                for nm in files), default=0.0)
     vol_tot = np.pi * g.r_max**2 * g.z_max
     sy = (
         1.058e-15
@@ -165,27 +224,20 @@ def _estimate_energy_scale(cfg: SimConfig, zone_init: ZoneInit) -> float:
         * vol_tot * dt0 * 0.01
     )
     inj = cfg.physics.injection.luminosity * dt0
-    return max(bb, sy, inj, 1.0) / 1e6
+    return max(bb, flux * area * dt0, sy, inj, 1.0) / 1e6
 
 
 def check_slice(cfg: SimConfig, mesh=None) -> None:
     """Raise NotImplementedError for options the port does not run yet."""
-    phys, g = cfg.physics, cfg.grid
     unsupported = [
-        (phys.cr_sent != 0, "cr_sent != 0 (boundary reflection)"),
         (mesh is not None, "mesh (multi-device)"),
-        (any(t < 0.0 for w in cfg.windows for t in (
-            *w.tbb_lower, *w.tbb_upper, *w.tbb_inner, *w.tbb_outer)),
-         "file-spectrum boundaries (tbb < 0)"),
-        (phys.fp_include_coulomb, "fp_include_coulomb"),
-        (cfg.run.adaptive_dt, "adaptive_dt"),
-        (phys.flare.enabled, "flare"),
+        (cfg.physics.fp_include_coulomb, "fp_include_coulomb"),
     ]
     for bad, name in unsupported:
         if bad:
             raise NotImplementedError(f"compton2d_tpu_torch: {name} is not "
                                       "ported yet")
-    flight.window_z(g.nz, g.nr)   # raises above the kernel's grid edge
+    flight.window_z(cfg.grid.nz, cfg.grid.nr)   # raises above 127 zones
     if cfg.run.n_slots % flight.TILE:
         raise ValueError(f"n_slots={cfg.run.n_slots} must be a multiple of "
                          f"{flight.TILE}")
@@ -198,8 +250,9 @@ class Simulation:
     ``torch.Generator`` on that device seeded from ``cfg.run.seed``
     (``state.key``). Host clock mirror: time/dt/ncycle advance
     deterministically, so the driver tracks them on the host instead of
-    reading the device scalars each step; assigning ``sim.state`` marks
-    the mirror dirty and the next ``step()`` resyncs it.
+    reading the device scalars each step (under ``adaptive_dt`` it reads
+    the new dt back after each step); assigning ``sim.state`` marks the
+    mirror dirty and the next ``step()`` resyncs it.
     """
 
     @property
@@ -292,6 +345,9 @@ class Simulation:
         self._host_time += self._host_dt
         self._host_dt_prev = self._host_dt
         self._host_ncycle += 1
+        if self.cfg.run.adaptive_dt:
+            # the FP ladder picked the next dt on the device: read it back
+            self._host_dt = float(self._state.dt)
         self.last_outputs = out
         if self.outputs is not None:
             self._check_event_overflow(out)
@@ -484,6 +540,38 @@ def pair_fields(photons: PhotonArray, zones: ZoneState, tables: Tables,
     )
 
 
+def flare_zones(zones: ZoneState, grid: Grid, fl, time, scales: Scales
+                ) -> ZoneState:
+    """The zones the FP solve sees under a coronal flare
+    (update2d.f:543-558): turb_lev + A g and tna (1 + A g), with g a
+    Gaussian in r, z (cm, scaled by L) and time (s) about the flare's
+    centre; the zones themselves unchanged without a flare."""
+    if not fl.enabled:
+        return zones
+    r_mid = 0.5 * (grid.r_edges[1:] + grid.r_edges[:-1])
+    z_mid = 0.5 * (grid.z_edges[1:] + grid.z_edges[:-1])
+    y = 0.5 * (
+        ((r_mid[None, :] - fl.r_flare / scales.L)
+         / (fl.sigma_r / scales.L)) ** 2
+        + ((z_mid[:, None] - fl.z_flare / scales.L)
+           / (fl.sigma_z / scales.L)) ** 2
+        + ((time - fl.t_flare) / fl.sigma_t) ** 2
+    )
+    tl_flare = torch.where(
+        y < 100.0, fl.amplitude / torch.exp(torch.clamp_max(y, 100.0)),
+        0.0).to(torch.float32)
+    return zones._replace(turb_lev=zones.turb_lev + tl_flare,
+                          tna=zones.tna * (1.0 + tl_flare))
+
+
+def adapt_dt(dt_new, grid: Grid, scales: Scales):
+    """The FP ladder's next dt (update2d.f:232-243) held at or above
+    dt_min = min(dr_min, dz) L / c (update2d.f:257)."""
+    dt_min = torch.minimum(torch.min(torch.diff(grid.r_edges)), grid.dz) \
+        * float(np.float32(scales.L / cn.C_LIGHT))
+    return torch.maximum(dt_new, dt_min.to(dt_new.dtype))
+
+
 def _step_impl(state: SimState, src: sourcing.SourceStatic, grid: Grid,
                tables: Tables, cfg: SimConfig, scales: Scales, ncycle: int,
                pair_tables: Optional[PairTables] = None,
@@ -604,6 +692,9 @@ def _step_impl(state: SimState, src: sourcing.SourceStatic, grid: Grid,
             1e-38,
         ),
         kgg_zone=state.k_gg.reshape(nzr, -1).to(f32),
+        e_ref=tables.e_ref,
+        p_ref_t=tables.p_ref.T.contiguous() if phys.cr_sent else None,
+        w_abs_t=tables.w_abs.T.contiguous() if phys.cr_sent else None,
     )
     strat_icut = 0
     if cfg.source.strat_split:
@@ -612,7 +703,7 @@ def _step_impl(state: SimState, src: sourcing.SourceStatic, grid: Grid,
                                          cfg.source.strat_gamma_c - 1.0))
         strat_icut = min(max(strat_icut, 1), g.num_nt - 1)
     st = TrackStatics(
-        nz=nz, nr=nr, rmin_positive=g.r_min > 1e-10,
+        nz=nz, nr=nr, cr_sent=phys.cr_sent, rmin_positive=g.r_min > 1e-10,
         max_iters=run.max_flight_iters,
         max_scatter_tries=run.max_scatter_tries,
         weight_floor=cfg.source.weight_floor, spec_switch=phys.spec_switch,
@@ -637,14 +728,17 @@ def _step_impl(state: SimState, src: sourcing.SourceStatic, grid: Grid,
     # ---- 4. FP electron update (update2d) -------------------------------
     zero = torch.zeros((), dtype=f32, device=dev)
     zero_i = torch.zeros((), dtype=i32, device=dev)
+    dt_next = state.dt
     if not phys.t_const:
         fpr = fp_step(
-            zones, tallies.n_field, tables, grid.vol, float(g.z_max),
-            grid.dz, state.dt, state.time, ve.eloss_sy, phys, scales,
+            flare_zones(zones, grid, phys.flare, state.time, scales),
+            tallies.n_field, tables, grid.vol, float(g.z_max), grid.dz,
+            state.dt, state.time, ve.eloss_sy, phys, scales,
             eloss_br=ve.eloss_br, dn_pp=state.dn_pp, dne_pa=state.dne_pa,
             dnp_pa=state.dnp_pa,
         )
-        # only apply after the field is established (ncycle > 0)
+        # only apply after the field is established (ncycle > 0); the
+        # flare's tna / turb_lev are the FP solve's alone (update2d.f:558)
         apply = ncycle > 0
         zones_new = (fpr.zones._replace(tna=zones.tna,
                                         turb_lev=zones.turb_lev)
@@ -653,16 +747,19 @@ def _step_impl(state: SimState, src: sourcing.SourceStatic, grid: Grid,
         e_el_old, e_el_new = fpr.e_el_old, fpr.e_el_new
         fp_sub = fpr.substeps
         fp_inc = fpr.incomplete if apply else zero_i
+        if run.adaptive_dt and apply:
+            dt_next = adapt_dt(fpr.dt_new, grid, scales).to(state.dt.dtype)
     else:
         zones_new = zones
         dT_max, e_el_old, e_el_new = zero, zero, zero
         fp_sub, fp_inc = zero_i, zero_i
 
-    # ---- 5. advance time (constant dt) -----------------------------------
+    # ---- 5. advance time (xec2d.f:100-106) --------------------------------
     new_state = state._replace(
         zones=zones_new,
         photons=photons,
         time=state.time + state.dt,
+        dt=dt_next,
         dt_prev=state.dt,
         ncycle=state.ncycle + 1,
         ed_abs=tallies.ed_in - tallies.ed_ref,

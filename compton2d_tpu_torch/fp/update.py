@@ -48,13 +48,16 @@ def fp_step(
     pair_switch, ``dn_pp`` (pair production), ``dne_pa`` and ``dnp_pa``
     (electron and positron annihilation), each (nz, nr, num_nt) in
     cm^-3 s^-1, act on the electrons and the positrons; all three are
-    required then."""
+    required then. The solve runs in the precision of ``zones.f_nt``:
+    float32 as the reference on every path; float64 zones (with the
+    tables' gamma_bar in float64) are a precision check of the float32
+    solve."""
     if phys.fp_include_coulomb:
         raise NotImplementedError(
             "fp_step: fp_include_coulomb is not ported yet")
     nz, nr, num_nt = zones.f_nt.shape
     Z = nz * nr
-    f32, i32 = torch.float32, torch.int32
+    f32, i32 = zones.f_nt.dtype, torch.int32
     dev = zones.f_nt.device
     gnt = tables.gnt.to(f32)
     gamma = gnt + 1.0
@@ -91,7 +94,7 @@ def fp_step(
     e_el_old = torch.sum(e_tot(f_old, ne))
 
     nf = n_field.reshape(Z, -1).to(f32)
-    dg_ic = -torch.matmul(nf, tables.f_ic.T) * (k_dgic / volume[:, None])
+    dg_ic = -torch.matmul(nf, tables.f_ic.to(f32).T) * (k_dgic / volume[:, None])
     f_sy = 1.058e-15 * B * B / cn.MEC2_ERG
     dg_A = gamma[None, :] / t_acc
     disp_A = gamma[None, :] * gamma[None, :] / (2.0 * t_acc)
@@ -314,7 +317,8 @@ def fp_step(
     amxwl_eff = torch.clamp(sum_th / sum_all, 0.0, 1.0)
     sum_e_mean = torch.sum(gamma * f * wdg, dim=-1) / sum_all
     p_cand = torch.as_tensor(
-        np.arange(0.1, 10.01, 0.05, dtype=np.float32), device=dev)
+        np.arange(0.1, 10.01, 0.05, dtype=np.float32), device=dev,
+        dtype=f32)
     nt_mask = (idx[None, :] >= i_nt[:, None]) & (idx < num_nt - 1)
     y_c = gamma[None, :] / gmax_eff[:, None]
     base = torch.where(nt_mask & (y_c < 90.0),

@@ -167,6 +167,18 @@ class VolumeEmission(NamedTuple):
     eloss_tot: torch.Tensor   # = eloss_sy, the active budget
 
 
+def normalized_cdf(p: torch.Tensor) -> torch.Tensor:
+    """Rows of running sums ``p`` (Z, n) divided by their totals. A zone
+    whose emission falls below the e_ph grid (total 0) collapses to a step
+    at bin 0 (the reference's degenerate-spectrum guard); any positive
+    total normalizes its row, subnormal ones included, where the reference
+    divides by at least 1e-37 and leaves such a row's CDF short of 1 (its
+    emission then lands in the top bin)."""
+    total = p[:, -1:]
+    pos = total > 0.0
+    return torch.where(pos, p / torch.where(pos, total, 1.0), 1.0)
+
+
 def volume_em(e_ph, gnt, f_nt, tea, n_e, B, amxwl, vol, zsurf, l_min, dt,
               scales: Scales, f_pair=None) -> VolumeEmission:
     """All zones at once (volume2d.f:10-390 + imcgen2d.f:276-335)."""
@@ -248,16 +260,8 @@ def volume_em(e_ph, gnt, f_nt, tea, n_e, B, amxwl, vol, zsurf, l_min, dt,
     w_th = torch.where(~thin, j_th, 0.0) * bin_w
     p_tot = torch.cumsum(w_tot, dim=1)
     p_th = torch.cumsum(w_th, dim=1)
-    # a zone whose emission falls below the e_ph grid collapses to a step
-    # at bin 0 (see the reference's degenerate-spectrum guard)
-    eps_tot = torch.where(
-        p_tot[:, -1:] > 0.0,
-        p_tot / torch.clamp_min(p_tot[:, -1:], 1e-37), 1.0,
-    )
-    eps_th = torch.where(
-        p_th[:, -1:] > 0.0,
-        p_th / torch.clamp_min(p_th[:, -1:], 1e-37), 1.0,
-    )
+    eps_tot = normalized_cdf(p_tot)
+    eps_th = normalized_cdf(p_th)
 
     sum_g2m1 = torch.sum((gamma * gamma - 1.0) * f * wdg, dim=1)
     nez1, Bz1, volz1, tea1 = nez[:, 0], Bz[:, 0], volz[:, 0], tea_z[:, 0]

@@ -14,6 +14,7 @@ JSON object::
   python -m compton2d_tpu_torch.profile_phases --config small_corona
   python -m compton2d_tpu_torch.profile_phases --config pair_corona
   python -m compton2d_tpu_torch.profile_phases --config large_corona
+  python -m compton2d_tpu_torch.profile_phases --config disk_deck
 
 ``mrk421`` is the dense Mrk 421 run (10x4 zones, 131072 slots, nst
 200000, n_e 2e6, stratified splitting with gamma_c 3e4 and 64 copies)
@@ -23,8 +24,12 @@ to t_stop; ``small_corona`` is the benchmark-size corona (8x4 zones,
 gamma 3-20, pair_switch on), ``large_corona`` the corona on the
 reference's largest grid (99x99 zones, 524288 slots, nst 240000, the main
 path's table widths) and ``grid_40x30`` the reference's windowed-test grid
-at the main path's widths and slots; each for 2 warm-up and ``--steps``
-timed steps. Beside the times it prints the tracking rounds, the lanes
+at the main path's widths and slots; ``disk_deck`` and ``ec_deck`` the
+reference-format decks of ``compton2d_tpu_torch.decks`` loaded by the
+legacy importer (8x4 zones with reflection, a flare and adaptive dt;
+10x5 zones lit by a diskgen file), 131072 slots, nst 60000; each for 2
+warm-up and ``--steps`` timed steps. Beside the times it prints the
+tracking rounds, the lower and outer-disk reflections, the lanes
 frozen with FLAG_WINDOW and the stragglers sent to census per step, the
 card's peak memory, and the flight kernel's own device time per step
 (CUDA events around each launch in the plain run, read after it).
@@ -39,7 +44,7 @@ import time
 
 import torch
 
-from compton2d_tpu_torch import driver, run_mrk421
+from compton2d_tpu_torch import decks, driver, run_mrk421
 from compton2d_tpu_torch.examples import small_corona
 from compton2d_tpu_torch.physics import pairs
 from compton2d_tpu_torch.transport import flight, tracking
@@ -66,6 +71,8 @@ def make_sim(config: str, device):
              "--strat-gamma-c", "3e4", "--strat-copies", "64",
              "--device", str(device)])
         return run_mrk421.make_sim(args)
+    if config in decks.WRITERS:
+        return decks.deck_sim(config, device)
     if config == "pair_corona":
         return small_corona(nz=4, nr=3, nst=200000, n_slots=1 << 18,
                             num_nt=100, n_vol=128, nphfield=128,
@@ -107,7 +114,8 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--config",
                     choices=("mrk421", "small_corona", "pair_corona",
-                             "large_corona", "grid_40x30"),
+                             "large_corona", "grid_40x30", "disk_deck",
+                             "ec_deck"),
                     default="mrk421")
     ap.add_argument("--steps", type=int, default=4)
     ap.add_argument("--warm", type=int, default=2)
@@ -173,6 +181,10 @@ def main(argv=None):
         "histories_per_s": sum(int(o.n_tracked) for o in outs) / wall,
         "rounds_per_step": sum(int(o.tallies.trk_rounds) for o in outs) / n,
         "fp_substeps_per_step": sum(int(o.fp_substeps) for o in outs) / n,
+        "reflections_lower_per_step":
+            sum(int(o.tallies.n_reflect_lower) for o in outs) / n,
+        "reflections_disk_per_step":
+            sum(int(o.tallies.n_reflect_disk) for o in outs) / n,
         "window_freezes_per_step":
             sum(int(o.tallies.n_window) for o in outs) / n,
         "stragglers_per_step":

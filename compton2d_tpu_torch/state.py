@@ -105,9 +105,14 @@ class Tallies(NamedTuple):
     n_sct_overflow: torch.Tensor  # int32
     # the port's own counters (int32): lanes frozen with FLAG_WINDOW by
     # the windowed flight kernel, summed over rounds, and the live photons
-    # sent to census with flight distance left at the iteration budget
+    # sent to census with flight distance left at the iteration budget;
+    # the lanes reflected at the lower boundary (sampled or mirrored,
+    # cr_sent 1/3/4) and the photons reflected off the outer disk and
+    # recorded (cr_sent 2/3)
     n_window: torch.Tensor
     n_straggler: torch.Tensor
+    n_reflect_lower: torch.Tensor
+    n_reflect_disk: torch.Tensor
 
     @classmethod
     def zeros(cls, nz, nr, num_nt, nphfield, n_gg, nmu, nphtotal, nph_lc,
@@ -127,7 +132,8 @@ class Tallies(NamedTuple):
             erlk_lower=f(nr), ed_in=f(nr), ed_ref=f(nr),
             e_killed=f(), e_scatter=f(), e_pair_abs=f(), e_src_lost=f(),
             e_rr=f(), n_rr=i(), trk_rounds=i(), n_sct_overflow=i(),
-            n_window=i(), n_straggler=i(),
+            n_window=i(), n_straggler=i(), n_reflect_lower=i(),
+            n_reflect_disk=i(),
         )
 
 

@@ -7,8 +7,9 @@ samplers take their uniforms as arguments; :func:`draw_emit_uniforms` is
 the thin draw layer the driver uses, and tests feed the reference's own
 numbers through the same arguments.
 
-File-spectrum boundaries (tbb < 0) are not ported yet: ``emit`` raises on
-a spectrum bank with a file row.
+File-spectrum boundaries (tbb < 0) draw their energies from the spectrum
+bank by an exact inverse CDF (:func:`sample_file_spectrum`), where the
+reference lerps a 4096-knot quantile table.
 """
 from __future__ import annotations
 
@@ -48,9 +49,10 @@ class SourceStatic(NamedTuple):
     tbb_upper: torch.Tensor
     tbb_inner: torch.Tensor
     tbb_outer: torch.Tensor
-    spec_e: torch.Tensor
-    spec_cdf: torch.Tensor
-    spec_inv: torch.Tensor
+    # the spectrum bank: one row per distinct spectrum file, row 0 the
+    # dummy "no file" row; each tbb < 0 ring indexes its row
+    spec_e: torch.Tensor      # (n_spec, nf) energies [keV]
+    spec_cdf: torch.Tensor    # (n_spec, nf) sampling CDF
     spec_lower: torch.Tensor
     spec_upper: torch.Tensor
     flux_lower: torch.Tensor
@@ -61,7 +63,8 @@ class SourceStatic(NamedTuple):
 class EmitUniforms(NamedTuple):
     """The random numbers one ``emit`` consumes."""
 
-    u: torch.Tensor          # (12, n) in [1e-7, 1); row 9 is unused
+    u: torch.Tensor          # (12, n) in [1e-7, 1); row 9 is unused,
+                             # row 10 draws file-spectrum energies
     planck_u4: torch.Tensor  # (n, 4) in [1e-12, 1)
     planck_rn: torch.Tensor  # (n,) in [0, 1)
 
@@ -71,6 +74,26 @@ def draw_emit_uniforms(gen: torch.Generator, n: int, device) -> EmitUniforms:
     u = 1e-7 + u * (1.0 - 1e-7)
     u4, rn = draw_planck_uniforms(gen, n, device)
     return EmitUniforms(u=u, planck_u4=u4, planck_rn=rn)
+
+
+def sample_file_spectrum(u, sid, spec_e, spec_cdf):
+    """Energies of file-spectrum photons (file_sample,
+    imcsurf2d_para.f:694-788): in bank row ``sid`` the bin j is the first
+    whose CDF reaches ``u``, and log e is linear in u inside it."""
+    sid = sid.long()
+    nf = spec_e.shape[1]
+    u = u.contiguous()
+    j = torch.zeros_like(sid)
+    for row in range(1, spec_e.shape[0]):
+        j = torch.where(sid == row, torch.searchsorted(
+            spec_cdf[row].contiguous(), u, side="left"), j)
+    j = torch.clamp(j, 1, nf - 1)
+    p_lo, p_hi = spec_cdf[sid, j - 1], spec_cdf[sid, j]
+    log_e = torch.log(spec_e)
+    le_lo, le_hi = log_e[sid, j - 1], log_e[sid, j]
+    fr = torch.clamp((u - p_lo) / torch.clamp_min(p_hi - p_lo, 1e-30),
+                     0.0, 1.0)
+    return torch.exp(le_lo + fr * (le_hi - le_lo))
 
 
 def compute_budget(
@@ -160,10 +183,6 @@ def emit(
 ):
     """Fill free slots with freshly emitted photons; returns (photons,
     e_lost) with the source energy lost to slot overflow."""
-    if src.spec_e.shape[0] > 1:
-        raise NotImplementedError(
-            "file-spectrum boundaries (tbb < 0) are not ported yet"
-        )
     n = photons.n_slots
     nzr = nz * nr
     f32, i32 = torch.float32, torch.int32
@@ -269,6 +288,11 @@ def emit(
     e_v = e_lo + u[8] * (e_hi - e_lo)
     e_b = sample_planck(draws.planck_u4, draws.planck_rn,
                         torch.clamp_min(tbb_here, 1e-6))
+    if src.spec_e.shape[0] > 1:
+        # a bank of the dummy row alone means no ring reads a file
+        sid = where(is_low, src.spec_lower[kr_sl], src.spec_upper[kr_sl])
+        e_b = where(is_file, sample_file_spectrum(
+            u[10], sid, src.spec_e, src.spec_cdf), e_b)
     e_new = where(is_vol, e_v, e_b)
 
     w_new = budget.weights[cat.long()]

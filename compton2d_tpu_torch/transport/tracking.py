@@ -1,19 +1,20 @@
-"""Photon tracking: the kernel's outer round loop, boundary leaks,
-stratified scatters and the census tallies (counterpart of
-``compton2d_tpu.transport.tracking`` on the Pallas path with
-``cr_sent=0``).
+"""Photon tracking: the kernel's outer round loop, boundary leaks and
+reflection, stratified scatters and the census tallies (counterpart of
+``compton2d_tpu.transport.tracking`` on the Pallas path).
 
 Each outer round launches the flight kernel (``transport.flight``) over
 all slots; a kernel entry ends only at census, leak, a collision in the
 strat mode, or the iteration budget. Lanes frozen with FLAG_LEAK are
-handed to :func:`_leak` (escape tallies and event records). With the
+handed to :func:`_leak` (escape tallies, Compton reflection off the lower
+boundary and the outer disk, event records); a lane reflected at the
+lower boundary stays alive and flies on in the next round. With the
 scatter inlined, the kernel's per-lane scatter logs are histogrammed into
 e_ic / n_esp; under stratified splitting the lanes frozen with
 FLAG_SCATTER go through :func:`apply_scatter`, which also places the tail
 copies in free slots. The reference's one-hot matmul tallies
 (``zone_accum`` / ``hist2d_accum``) and row lookups (``_zone_rows``)
 become deterministic segment sums and gathers, and its compare-count
-binning becomes ``searchsorted``.
+binning and bisections become ``searchsorted``.
 """
 from __future__ import annotations
 
@@ -38,6 +39,9 @@ class TrackStatics:
 
     nz: int
     nr: int
+    # Compton reflection (PhysicsConfig.cr_sent): 0 none, 1 lower
+    # boundary, 2 outer disk, 3 both, 4 mirror at the lower boundary
+    cr_sent: int = 0
     rmin_positive: bool = False
     max_iters: int = 512
     max_scatter_tries: int = 64
@@ -57,8 +61,7 @@ class TrackStatics:
 
 
 class TrackContext(NamedTuple):
-    """Per-step inputs for the tracker (fields as in the reference; its
-    reflection fields are not needed with cr_sent=0)."""
+    """Per-step inputs for the tracker (fields as in the reference)."""
 
     r_edges: torch.Tensor     # (nr+1,) f32
     z_edges: torch.Tensor     # (nz+1,) f32
@@ -85,6 +88,53 @@ class TrackContext(NamedTuple):
     # (nz*nr, n_gg) gamma-gamma opacity [1/L] on the e_gg grid; read only
     # under pair_switch
     kgg_zone: Optional[torch.Tensor] = None
+    # the reflection tables, read only with cr_sent != 0: the energy grid
+    # (n_ref,) and P_ref / w_abs transposed to (n_in, n_out), so that the
+    # sampler searches along one input row (the reference's p_ref_t and
+    # w_abs_t)
+    e_ref: Optional[torch.Tensor] = None
+    p_ref_t: Optional[torch.Tensor] = None
+    w_abs_t: Optional[torch.Tensor] = None
+
+
+class LeakDraws(NamedTuple):
+    """The uniforms (n,) of one round's reflections, in the reference's
+    streams: the lower boundary's CDF and energy draws (its k1 and k2),
+    the outer disk's (fold_in(k1, 1), fold_in(k2, 1)) and the disk
+    photon's direction (fold_in(k1, 2))."""
+
+    u_cdf_low: torch.Tensor
+    u_e_low: torch.Tensor
+    u_cdf_disk: torch.Tensor
+    u_e_disk: torch.Tensor
+    u_mu: torch.Tensor
+
+
+def draw_leak_uniforms(gen: torch.Generator, n: int, device) -> LeakDraws:
+    """The five uniforms of a round with a leak, in a fixed order."""
+    return LeakDraws(*torch.rand((5, n), generator=gen, device=device))
+
+
+def sample_reflection(e, w, u_cdf, u_e, e_ref, p_ref_t, w_abs_t):
+    """Compton reflection of photons (e, w) off cold matter
+    (imcleak2d.f:104-165, 216-272): the input bin n_in is the first e_ref
+    at or above e, the output bin the first n_out whose P_ref[n_out, n_in]
+    reaches u_cdf, the energy a linear draw u_e inside that bin, and the
+    weight w * w_abs[n_out, n_in] * e_new / e. Returns (e_new, w_new)."""
+    n_ref = e_ref.shape[0]
+    n_in = torch.clamp(torch.searchsorted(
+        e_ref, e.to(e_ref.dtype).contiguous(), side="left"), 0, n_ref - 1)
+    rows = p_ref_t[n_in]                                 # (k, n_ref)
+    n_out = torch.clamp(torch.searchsorted(
+        rows, u_cdf.to(rows.dtype)[:, None].contiguous(),
+        side="left")[:, 0], 0, n_ref - 1)
+    e_lo = e_ref[torch.clamp_min(n_out - 1, 0)]
+    e_hi = e_ref[n_out]
+    e_new = torch.where(n_out > 0, e_lo + u_e * (e_hi - e_lo),
+                        e_ref[0]).to(torch.float32)
+    w_new = w * w_abs_t[n_in, n_out].to(torch.float32) * e_new \
+        / torch.clamp_min(e, 1e-30)
+    return e_new, w_new
 
 
 # draw(first_stream, n_streams, idx) -> uniforms of n_streams weighted
@@ -252,7 +302,10 @@ def transport_step(
                                           device=ph.e.device))
         leak_mask = (res.flag == flight.FLAG_LEAK) & ph.alive
         if bool(torch.any(leak_mask)):
-            ph, tl, ev = _leak(ph, tl, ev, leak_mask, res.jn, res.kn, ctx, st)
+            draws = (draw_leak_uniforms(gen, n, ph.e.device) if st.cr_sent
+                     else None)
+            ph, tl, ev = _leak(ph, tl, ev, leak_mask, res.jn, res.kn, ctx,
+                               st, draws)
         if not inline:
             sct = (res.flag == flight.FLAG_SCATTER) & ph.alive
             if bool(torch.any(sct)):
@@ -380,18 +433,29 @@ def apply_scatter(ph: PhotonArray, tl: Tallies, sct: torch.Tensor,
 
 
 def _leak(ph: PhotonArray, tl: Tallies, ev: EventBuffer, mask, jnew, knew,
-          ctx: TrackContext, st: TrackStatics):
-    """Boundary handler (imcleak2d.f) for cr_sent=0: escapes through the
-    outer, upper and lower boundaries, the inner boundary (absorbing when
-    r_min > 0, a transparent axis otherwise), and the event records."""
+          ctx: TrackContext, st: TrackStatics,
+          draws: Optional[LeakDraws] = None):
+    """Boundary handler (imcleak2d.f): escapes through the outer, upper and
+    lower boundaries, the inner boundary (absorbing when r_min > 0, a
+    transparent axis otherwise), Compton reflection (cr_sent 1-4, with the
+    uniforms ``draws``) and the event records.
+
+    A lane reflected at the lower boundary (cr_sent 1/3/4) is sampled off
+    the reflection tables where the ring's boundary is thermal, else
+    mirrored (and always mirrored under cr_sent 4); it turns upward into
+    zone row 0 and stays alive. A downward photon leaving the outer radius
+    (cr_sent 2/3) is reflected off the disk, recorded with its flight time
+    to the z = 0 plane and killed."""
     n = ph.n_slots
     where = torch.where
+    i32 = torch.int32
     at_inner = mask & (knew < 0)
     at_outer = mask & (knew >= st.nr)
     at_lower = mask & (jnew < 0) & ~at_inner & ~at_outer
     at_upper = mask & (jnew >= st.nz) & ~at_inner & ~at_outer
     jz_c = torch.clamp(ph.jz, 0, st.nz - 1)
     kr_c = torch.clamp(ph.kr, 0, st.nr - 1)
+    tbbl_pos = ctx.tbbl_pos[kr_c.long()]
 
     if st.rmin_positive:
         tl = tl._replace(erlk_inner=tl.erlk_inner + segment_sum(
@@ -413,23 +477,83 @@ def _leak(ph: PhotonArray, tl: Tallies, ev: EventBuffer, mask, jnew, knew,
         erlk_lower=tl.erlk_lower + segment_sum(
             where(at_lower, ph.w, 0.0), kr_c, st.nr),
         ed_in=tl.ed_in + segment_sum(
-            where(at_lower & ctx.tbbl_pos[kr_c.long()], ph.w, 0.0),
-            kr_c, st.nr),
+            where(at_lower & tbbl_pos, ph.w, 0.0), kr_c, st.nr),
     )
 
-    escaping = at_outer | at_lower | at_upper | die_inner
-    record = (at_outer | at_lower | at_upper) & ~(
+    def reflect(sel, u_cdf, u_e):
+        """Sample the reflection of the lanes ``sel`` only (one host read
+        of their count): (slots, e_new, w_new)."""
+        idx = torch.nonzero(sel).reshape(-1)
+        e_new, w_new = sample_reflection(
+            ph.e[idx], ph.w[idx], u_cdf[idx], u_e[idx], ctx.e_ref,
+            ctx.p_ref_t, ctx.w_abs_t)
+        return idx, e_new, w_new
+
+    # ---- lower-boundary Compton reflection (imcleak2d.f:104-165) --------
+    reflect_low = torch.zeros(n, dtype=torch.bool, device=mask.device)
+    if st.cr_sent in (1, 3, 4):
+        reflect_low = at_lower
+        mirror = ~tbbl_pos | (st.cr_sent == 4)
+        idx, e_new, w_new = reflect(reflect_low & ~mirror, draws.u_cdf_low,
+                                    draws.u_e_low)
+        tl = tl._replace(
+            ed_ref=tl.ed_ref + segment_sum(w_new, kr_c[idx], st.nr),
+            n_reflect_lower=tl.n_reflect_lower + torch.sum(
+                reflect_low, dtype=i32),
+        )
+        ph = ph._replace(
+            e=ph.e.index_copy(0, idx, e_new),
+            w=ph.w.index_copy(0, idx, w_new),
+            mu=where(reflect_low, torch.abs(ph.mu), ph.mu),
+            jz=where(reflect_low, 0, ph.jz).to(i32),
+        )
+
+    # ---- outer-disk reflection (cr_sent 2/3, imcleak2d.f:216-272): a
+    # downward photon leaving the outer radius reflects off the disk around
+    # the corona, is recorded with its flight time to the disk plane and
+    # killed ------------------------------------------------------------
+    disk_extra_t = torch.zeros(n, dtype=torch.float32, device=mask.device)
+    if st.cr_sent in (2, 3):
+        disk_refl = at_outer & (ph.mu <= 0.0)
+        idx, e_new, w_new = reflect(disk_refl, draws.u_cdf_disk,
+                                    draws.u_e_disk)
+        abs_mu = torch.clamp_min(torch.abs(ph.mu), 1e-6)
+        mu_ok = torch.abs(ph.mu) > 1e-6
+        # flight to the z = 0 disk plane (imcleak2d.f:247-255)
+        extra_t = where(mu_ok, ph.z / abs_mu, 1e20)
+        f_h = ph.z * torch.sqrt(torch.clamp_min(1.0 - ph.mu ** 2, 0.0)) \
+            / abs_mu
+        r_disk = torch.sqrt(torch.clamp_min(
+            ph.r ** 2 + f_h ** 2 + 2.0 * ph.r * f_h * ph.cphi, 0.0))
+        ph = ph._replace(
+            e=ph.e.index_copy(0, idx, e_new),
+            w=ph.w.index_copy(0, idx, w_new),
+            z=where(disk_refl, 0.0, ph.z),
+            r=where(disk_refl & mu_ok, r_disk, ph.r),
+            mu=where(disk_refl, draws.u_mu, ph.mu),
+        )
+        disk_extra_t = where(disk_refl, extra_t, 0.0)
+        tl = tl._replace(n_reflect_disk=tl.n_reflect_disk + torch.sum(
+            disk_refl, dtype=i32))
+
+    esc_lower = at_lower & ~reflect_low
+    escaping = at_outer | esc_lower | at_upper | die_inner
+    record = (at_outer | esc_lower | at_upper) & ~(
         at_upper & (ph.mu >= st.upper_escape_mu_cut)
     )
     f32 = torch.float32
-    t_bound = (ctx.time.to(f32) + ctx.dt.to(f32)) - ctx.inv_c * ph.dcen
+    # remaining flight time plus the disk reflection's delay
+    # (imcleak2d.f:203, 247-249)
+    t_bound = (ctx.time.to(f32) + ctx.dt.to(f32)) - ctx.inv_c * (
+        ph.dcen - disk_extra_t)
 
     sp = spectral_bin(ctx.hu, ph.e)
     lc = lc_bin(ctx.lc_lo, ctx.lc_hi, ph.e)
     mb = mu_bin(ctx.mu_edges, ph.mu)
     w_tal = where(record, ph.w, 0.0)
     if st.spec_switch == 1:
-        w_sp = where(at_upper | at_lower, ph.w, 0.0)
+        # the spectra incident on the z boundaries (imcleak2d.f:116-117)
+        w_sp = where(reflect_low | at_upper | at_lower, ph.w, 0.0)
     else:
         w_sp = w_tal
     nmu = tl.fout.shape[0]
@@ -445,16 +569,16 @@ def _leak(ph: PhotonArray, tl: Tallies, ev: EventBuffer, mask, jnew, knew,
     # event records (imcleak2d.f:105 format), in slot order
     phi = torch.atan2(ph.sphi, ph.cphi)
     rec = torch.stack([t_bound, ph.e, ph.w, ph.r, ph.z, ph.mu, phi], dim=1)
-    rec_i = record.to(torch.int32)
+    rec_i = record.to(i32)
     cap = ev.data.shape[0]
-    idx = ev.count + torch.cumsum(rec_i, dim=0, dtype=torch.int32) - 1
+    idx = ev.count + torch.cumsum(rec_i, dim=0, dtype=i32) - 1
     write = record & (idx < cap)
     # rows past capacity (and non-records) land in a scratch row
     data = torch.cat([ev.data, ev.data.new_zeros((1, 7))], dim=0)
     data[where(write, idx, cap).long()] = rec
     ev = ev._replace(
         data=data[:cap],
-        count=ev.count + torch.sum(rec_i, dtype=torch.int32),
+        count=ev.count + torch.sum(rec_i, dtype=i32),
     )
     ph = ph._replace(alive=ph.alive & ~(escaping | die_inner))
     return ph, tl, ev

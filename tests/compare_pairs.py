@@ -19,7 +19,20 @@ each printed line by line:
     Chang-Cooper limits below w = -500 patched in, with the pair terms of
     the two end bins zeroed, and with both; and through the port's
     ``fp_step``: the pair fraction and Te per zone of each, and each
-    one's largest difference from the port relative to the port's max.
+    one's largest difference from the port relative to the port's max;
+``precision``
+    the port's pair corona (4x3 zones, seed 0) for ``--steps`` steps with
+    its ``fp_step`` in float32, as it runs, and again in float64 (the
+    arguments and tables cast up, the results cast back): per step the
+    largest pair fraction and positron density of both trajectories, and
+    the float64 solve on the float32 run's own inputs of that step;
+``deck``
+    the reference-format deck ``--deck`` (the port's ``decks``) at full
+    width (GridConfig's defaults, as on the card) with ``--slots`` slots
+    and nst ``--nst``, written once and loaded by each package's legacy
+    importer: per step the audit, Te range, mean Te, FP substeps and
+    dT_max of the reference (XLA tracking path, at the port's energy
+    unit) and of the port's plain CPU path, over ``--seeds``.
 
 Run from the repository root::
 
@@ -27,6 +40,8 @@ Run from the repository root::
     JAX_PLATFORMS=cpu python tests/compare_pairs.py trajectory --steps 6
     JAX_PLATFORMS=cpu python tests/compare_pairs.py fp --step 3
     JAX_PLATFORMS=cpu python tests/compare_pairs.py fp --step 1 --size tiny
+    python tests/compare_pairs.py precision --steps 8
+    JAX_PLATFORMS=cpu python tests/compare_pairs.py deck --deck ec_deck
 """
 import argparse
 import dataclasses
@@ -213,19 +228,134 @@ def fp(step, size):
     show("port", port)
 
 
+def _cast(x, dtype):
+    if isinstance(x, torch.Tensor) and x.is_floating_point():
+        return x.to(dtype)
+    if hasattr(x, "_fields"):
+        return x._replace(**{f: _cast(getattr(x, f), dtype)
+                             for f in x._fields})
+    return x
+
+
+def fp_float64(*a, **k):
+    """The port's fp_step in float64 on float32 arguments (the tables cast
+    up as well); the result cast back to float32."""
+    from compton2d_tpu_torch.fp.update import fp_step as p_fp_step
+
+    f64 = torch.float64
+    tables = a[2]
+    tables = tables._replace(gnt=_cast(tables.gnt, f64),
+                             f_ic=_cast(tables.f_ic, f64),
+                             gamma_bar=_cast(tables.gamma_bar, f64))
+    args = [_cast(x, f64) for x in a]
+    args[2] = tables
+    res = p_fp_step(*args, **{n: _cast(v, f64) for n, v in k.items()})
+    return _cast(res, torch.float32)
+
+
+def precision(steps):
+    from compton2d_tpu_torch import driver
+    from compton2d_tpu_torch import examples as pex
+
+    runs = {}
+    port_fp = driver.fp_step
+    for label, fn in (("float32", port_fp), ("float64", fp_float64)):
+        same_input = []
+
+        def fp(*a, _fn=fn, **k):
+            res = _fn(*a, **k)
+            if _fn is port_fp:
+                same_input.append((fp_float64(*a, **k).zones, res.zones))
+            return res
+
+        driver.fp_step = fp
+        try:
+            sim = pex.small_corona(**MID, seed=0, device="cpu")
+            rows = []
+            for i in range(steps):
+                sim.step()
+                z = sim.state.zones
+                rows.append((_np(z.f_pair).max(), _np(z.n_pos).max(),
+                             _np(z.tea).min(), _np(z.tea).max()))
+        finally:
+            driver.fp_step = port_fp
+        runs[label] = (rows, same_input)
+    for i in range(steps):
+        line = [f"step {i}:"]
+        for label in ("float32", "float64"):
+            fpair, npos, t0, t1 = runs[label][0][i]
+            line.append(f"{label} f_pair max {fpair:.4e} n_pos max "
+                        f"{npos:.4e} Te {t0:.1f}-{t1:.1f}")
+        z64, z32 = runs["float32"][1][i]
+        rel = (np.max(np.abs(_np(z64.f_pair) - _np(z32.f_pair)))
+               / max(_np(z32.f_pair).max(), 1e-300))
+        line.append(f"float64 solve on the float32 inputs: f_pair max "
+                    f"{_np(z64.f_pair).max():.4e}, largest difference "
+                    f"{rel:.3e} of the float32 max")
+        print(" | ".join(line), flush=True)
+
+
+def deck(name, seeds, steps, n_slots, nst):
+    import tempfile
+
+    import jax
+
+    from compton2d_tpu.driver import Simulation as JSim
+    from compton2d_tpu.io import legacy as jleg
+    from compton2d_tpu_torch import decks
+    from compton2d_tpu_torch.driver import Simulation as PSim
+
+    run = dict(n_slots=n_slots, event_capacity=n_slots)
+    # the spectrum files are read when a Simulation is made
+    with tempfile.TemporaryDirectory() as d:
+        lc = decks.load_deck(name, d, nst=nst, **run)
+        port = PSim(lc.cfg, lc.zones, device="cpu")
+        # the port's energy unit: the reference's own takes a file ring
+        # (tbb = -1) as a 1 keV blackbody (ROADMAP section C)
+        jlc = jleg.load_legacy_config(
+            d, pallas_tracking="off", energy_scale=port.scales.E,
+            adaptive_dt=(name == "disk_deck"), **run)
+        ref = JSim(jlc.cfg, jlc.zones)
+        ports = [PSim(lc.cfg.replace(run=dataclasses.replace(
+            lc.cfg.run, seed=s)), lc.zones, device="cpu") for s in seeds]
+    init = ref.state
+    for s, port in zip(seeds, ports):
+        ref.state = init._replace(key=jax.random.PRNGKey(s))
+        for label, sim in (("reference", ref), ("port", port)):
+            for i in range(steps):
+                out = sim.step()
+                tea = _np(sim.state.zones.tea)
+                print(f"{name} {label} seed {s} step {i}: balance "
+                      f"{sim.energy_audit()['balance']:.6f} Te "
+                      f"{tea.min():.2f}-{tea.max():.2f} keV mean "
+                      f"{tea.mean():.2f} FP substeps "
+                      f"{int(_np(out.fp_substeps))} dT_max "
+                      f"{float(_np(out.dT_max)):.4f} dt "
+                      f"{float(_np(sim.state.dt)):.6e} s", flush=True)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("what", choices=("te", "trajectory", "fp"))
+    ap.add_argument("what", choices=("te", "trajectory", "fp",
+                                     "precision", "deck"))
     ap.add_argument("--seeds", type=int, nargs="+", default=[0, 1])
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--step", type=int, default=3)
     ap.add_argument("--size", choices=tuple(SIZES), default="mid")
+    ap.add_argument("--deck", choices=("disk_deck", "ec_deck"),
+                    default="ec_deck")
+    ap.add_argument("--slots", type=int, default=8192)
+    ap.add_argument("--nst", type=int, default=4000)
     args = ap.parse_args(argv)
     torch.set_num_threads(4)
     if args.what == "te":
         te(args.seeds, args.steps)
     elif args.what == "trajectory":
         trajectory(args.seeds, args.steps)
+    elif args.what == "precision":
+        precision(args.steps)
+    elif args.what == "deck":
+        deck(args.deck, args.seeds, args.steps, args.slots, args.nst)
     else:
         fp(args.step, args.size)
 

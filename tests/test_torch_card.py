@@ -1,8 +1,10 @@
 """The flight kernel, in its inline-scatter and strat modes, with and
 without pair_switch, in its windowed mode above 1024 zones, with its
 tables in shared and in global memory, and over several blocks that end
-inside a tile, against its plain PyTorch version on a CUDA card; and its
-SIMT counters against the plain version's lane-iterations.
+inside a tile, against its plain PyTorch version on a CUDA card; its
+SIMT counters against the plain version's lane-iterations; and one step
+of each reference-format deck (boundary reflection, a flare and adaptive
+dt; a file-lit blazar blob) on the card against the CPU plain path.
 
 These tests need the card and skip without one. They import neither jax
 nor the JAX package, so they also run on a machine without jax:
@@ -313,3 +315,55 @@ def test_simt_counters_add_up_to_the_plain_lane_iterations(card):
     assert tuple(k.counters.shape) == (N // 32, flight.N_COUNT)
     p = _run(flight.flight_step_reference, args, tables, seeds, iters)
     assert k.it_used == p.it_used
+
+
+DECK_WIDTHS = {
+    "disk_deck": dict(num_nt=50, n_vol=64, nphfield=64, n_gg=32, n_ref=100),
+    "ec_deck": dict(num_nt=100, n_vol=128, nphfield=128, n_gg=32,
+                    n_ref=100),
+}
+
+
+def _deck_step(name, dirpath, device, seed=3):
+    """One step of the deck ``name`` (3x2 zones, nst 3000, 4096 slots)
+    on ``device``: the audit, its reflection share sum(ed_ref) E / avail,
+    and the step's outputs."""
+    import os
+
+    from compton2d_tpu_torch import decks
+    from compton2d_tpu_torch.driver import Simulation
+
+    os.makedirs(dirpath, exist_ok=True)
+    lc = decks.load_deck(name, dirpath, grid=DECK_WIDTHS[name], nz=3, nr=2,
+                         nst=3000, seed=seed, n_slots=4096,
+                         event_capacity=4096)
+    sim = Simulation(lc.cfg, lc.zones, device=device)
+    out = sim.step()
+    a = sim.energy_audit()
+    avail = a["input"] - a["src_lost"] + a["scatter_gain"] - a["rr"]
+    extra = float(out.tallies.ed_ref.sum()) * sim.scales.E / avail
+    return a, extra, out
+
+
+@pytest.mark.parametrize("name", ["disk_deck", "ec_deck"])
+def test_deck_step_on_the_card_against_the_plain_path(card, name,
+                                                      tmp_path):
+    """One step of each deck on the card and on the CPU plain path: both
+    audits within 2e-3 once the reflection share is added to 1 (a
+    reflected photon is tallied twice, as in the reference), the card's
+    step through the flight kernel, and its escaped energy and reflection
+    share within 60% of the plain path's (the two draw different random
+    streams; nst 3000 spreads these totals by ~30% between seeds)."""
+    launches = flight.LAUNCHES
+    a_k, x_k, out_k = _deck_step(name, str(tmp_path / "card"), card)
+    assert flight.LAUNCHES > launches
+    a_p, x_p, _ = _deck_step(name, str(tmp_path / "plain"), "cpu")
+    for a, x in ((a_k, x_k), (a_p, x_p)):
+        assert abs(a["balance"] - (1.0 + x)) < 2e-3, (a, x)
+    rel = abs(a_k["escaped"] - a_p["escaped"]) / a_p["escaped"]
+    assert rel < 0.6, (a_k["escaped"], a_p["escaped"])
+    if name == "disk_deck":
+        assert x_k > 0.0 and abs(x_k - x_p) / x_p < 0.6, (x_k, x_p)
+        assert int(out_k.tallies.n_reflect_lower) > 0
+    else:
+        assert x_k == x_p == 0.0

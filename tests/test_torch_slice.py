@@ -109,31 +109,69 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert proc.stdout.strip() == "ok"
 
 
-def _window(nz, nr, tbb=0.5):
+def _window(nz, nr, tbb=0.5, lower_spectra=()):
     return pcfg.TimeWindow(t0=0.0, t1=1e30, tbb_lower=(tbb,) * nr,
                            tbb_upper=(0.0,) * nr, tbb_inner=(0.0,) * nz,
-                           tbb_outer=(0.0,) * nz)
+                           tbb_outer=(0.0,) * nz,
+                           lower_spectra=lower_spectra)
+
+
+def _config(change, lower_spectra=()):
+    grid = pcfg.GridConfig(**{"nz": 3, "nr": 2, "num_nt": 40, "n_vol": 32,
+                              "nphfield": 32, "n_gg": 16, "n_ref": 50,
+                              **change.get("grid", {})})
+    return pcfg.SimConfig(
+        grid=grid,
+        physics=pcfg.PhysicsConfig(**change.get("physics", {})),
+        source=pcfg.SourceConfig(nst=300, **change.get("source", {})),
+        run=pcfg.RunConfig(n_slots=1024, event_capacity=1024,
+                           **change.get("run", {})),
+        windows=(_window(grid.nz, grid.nr, change.get("tbb", 0.5),
+                         lower_spectra),),
+    )
+
+
+@pytest.mark.parametrize("change", [
+    dict(mesh=True),
+    dict(physics=dict(fp_include_coulomb=True)),
+    dict(grid=dict(nz=128, nr=2)),
+])
+def test_options_outside_the_slice_raise(change):
+    with pytest.raises(NotImplementedError):
+        Simulation(_config(change), device="cpu",
+                   mesh=object() if change.get("mesh") else None)
 
 
 @pytest.mark.parametrize("change", [
     dict(physics=dict(cr_sent=1)),
     dict(physics=dict(cr_sent=2)),
-    dict(mesh=True),
     dict(tbb=-1.0),
-    dict(physics=dict(fp_include_coulomb=True)),
     dict(run=dict(adaptive_dt=True)),
-    dict(physics=dict(flare=pcfg.FlareConfig(enabled=True))),
-    dict(grid=dict(nz=128, nr=2)),
+    dict(physics=dict(flare=pcfg.FlareConfig(
+        enabled=True, r_flare=5e14, z_flare=5e14, sigma_r=5e14,
+        sigma_z=5e14, sigma_t=1e4, amplitude=1.0))),
 ])
-def test_options_outside_the_slice_raise(change):
-    grid = pcfg.GridConfig(**{"nz": 3, "nr": 2, **change.get("grid", {})})
-    cfg = pcfg.SimConfig(
-        grid=grid,
-        physics=pcfg.PhysicsConfig(**change.get("physics", {})),
-        source=pcfg.SourceConfig(**change.get("source", {})),
-        run=pcfg.RunConfig(n_slots=1024, **change.get("run", {})),
-        windows=(_window(grid.nz, grid.nr, change.get("tbb", 0.5)),),
-    )
-    with pytest.raises(NotImplementedError):
-        Simulation(cfg, device="cpu",
-                   mesh=object() if change.get("mesh") else None)
+def test_options_of_the_slice_run(change, tmp_path):
+    """The options the port ran outside its slice before boundary
+    reflection, file-spectrum boundaries (here a diskgen file on every
+    lower ring), adaptive dt and flares were ported: each builds a CPU
+    Simulation that takes a step with finite results."""
+    from compton2d_tpu_torch.io import diskgen
+
+    files = ()
+    if change.get("tbb", 0.5) < 0.0:
+        path = str(tmp_path / "bb.in")
+        diskgen.write_spectrum_file(path, gamma_bulk=10.0)
+        files = (path, path)
+        # tests/test_external_source.py's external radiation fields
+        change = dict(change, source=dict(
+            external=pcfg.ExternalRadiationConfig(
+                R_blr=1e17, fr_blr=0.1, R_ir=1e18, fr_ir=0.3, R_disk=1e15,
+                d_jet=1e17, g_bulk=10.0)))
+    sim = Simulation(_config(change, files), device="cpu")
+    out = sim.step()
+    a = sim.energy_audit()
+    assert np.isfinite(a["balance"]) and float(out.bingo) > 0.0
+    assert bool(torch.all(torch.isfinite(sim.state.zones.tea)))
+    if files:
+        assert float(torch.sum(sim.src_static.flux_lower)) > 0.0

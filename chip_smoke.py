@@ -99,15 +99,35 @@ Phases (any failure raises and the script exits non-zero):
    kernel against its plain version, as in phase 2, on each deck's own
    inputs of its first timed step's first round (the disk deck's 8x4
    tables in shared memory, the blazar blob's 10x5 ones in global
-   memory), with its times and bound at that shape.
+   memory), with its times and bound at that shape;
+8. the production run: the main path's corona with the Coulomb FP drift
+   (``fp_include_coulomb``; its tables built once on the host, timed), 2
+   warm-up and 6 timed steps through ``Simulation.step()``: every step's
+   audit within 2e-3, finite temperatures, B1 launches only (shared
+   tables, no plain-version run), the ms/step, histories/s and FP
+   substeps/step; the same 8 steps twice from the seed (bitwise-equal
+   tallies) and once without the Coulomb terms (both mean Te and substep
+   counts logged; the electron distributions must differ); ``fp_step`` on
+   the run's inputs of its first timed step with and without the terms,
+   6 calls each in turns; the flight kernel against its plain version, as
+   in phase 2, on the run's first timed step's first round;
+   ``write_diagnostics(extras=True)`` after the run and after 2 steps of
+   phase 5's pair corona (every file of the reference's with its rows and
+   columns); ``photon_fill_diagnostic`` with the checks of the JAX
+   package's test after the first step (the cycle-1 table the reference
+   computes) and, all but its net-cooling zone, after the run; then 3
+   steps, ``run_to_stop`` with a spent walltime budget (a checkpoint,
+   False), and 3 steps of a fresh Simulation resumed from it with the
+   event file appended to, bitwise equal to 6 uninterrupted steps (every
+   state tensor, the generator, each step's tallies, the event file).
 
 The first five phases' launches of the path-shaped modes read their
 tables from shared memory (checked with the wrapper's count of
 global-table launches), the windowed and 32x32 ones from global memory;
-in phase 7 the disk deck's from shared memory (counted in the 8x4 entry
-of the kernels line) and the blazar blob's (10x5 zones, 252,064 bytes)
-from global memory, in an entry of their own, timed on that deck's
-inputs.
+in phase 7 the disk deck's and in phase 8 the Coulomb corona's from
+shared memory (counted in the 8x4 entry of the kernels line) and the
+blazar blob's (10x5 zones, 252,064 bytes) from global memory, in an
+entry of their own, timed on that deck's inputs.
 
 Each kernel's wrapper counts its launches; the counts are set to 0 just
 before each main path and read just after. The line before the last is a
@@ -135,6 +155,8 @@ from compton2d_tpu_torch import decks, driver, run_mrk421
 from compton2d_tpu_torch.config import RunConfig
 from compton2d_tpu_torch.constants import SIGMA_THOMSON
 from compton2d_tpu_torch.examples import small_corona
+from compton2d_tpu_torch.io import checkpoint
+from compton2d_tpu_torch.physics import coulomb
 from compton2d_tpu_torch.state import PhotonArray
 from compton2d_tpu_torch.physics.electron_dist import gnt_grid
 from compton2d_tpu_torch.tables import e_field_grid, e_gg_grid
@@ -157,6 +179,12 @@ RESIDENT_NZ, RESIDENT_NR = 32, 32   # the largest resident grid
 LARGE_TIMED, LARGE_WARM, GRID_STEPS = 3, 1, 2
 # the reference-format decks (compton2d_tpu_torch.decks)
 DECK_WARM, DECK_TIMED, DECK_REPEAT = 2, 6, 2
+# the production run: the Coulomb corona's steps, the checkpoint's split
+# and the pair corona's steps before its dumps
+COUL_WARM, COUL_TIMED = 2, 6
+CKPT_FIRST, CKPT_RESUMED = 3, 3
+PAIR_DUMP_STEPS = 2
+FP_TURNS = 6          # fp_step with and without the Coulomb terms
 AUDIT_TOL = 2e-3     # |balance - 1|, the JAX tests' bound
 MRK_AUDIT_TOL = 5e-3  # the bound of tests/test_mrk421.py
 MAX_TRIES = RunConfig().max_scatter_tries
@@ -621,13 +649,14 @@ def state_devices(state) -> set:
 
 
 def bench_sim(device, seed: int = 0, nz: int = NZ, nr: int = NR,
-              nst: int = 60000, n_slots: int = N_SLOTS):
+              nst: int = 60000, n_slots: int = N_SLOTS, **phys_kw):
     """The main path's corona; with other (nz, nr, nst, n_slots) the
-    large grid's coronae at the main path's widths."""
+    large grid's coronae at the main path's widths; ``phys_kw`` sets
+    options of its PhysicsConfig."""
     return small_corona(nz=nz, nr=nr, nst=nst, n_slots=n_slots,
                         num_nt=NUM_NT, n_vol=N_VOL, nphfield=400,
                         t_const=False, max_flight_iters=256, seed=seed,
-                        device=device)
+                        device=device, **phys_kw)
 
 
 def small_audit(device, seed: int):
@@ -1450,6 +1479,325 @@ def check_deck_repeatable(name: str, device, outs) -> None:
         f"({DECK_REPEAT} steps)")
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the production run
+# ---------------------------------------------------------------------------
+def slice_sim(device, seed: int = 0, coulomb: bool = True):
+    """The production run's corona: the main path with the Coulomb FP
+    drift (or, for the comparison, without it)."""
+    return bench_sim(device, seed=seed, fp_include_coulomb=coulomb)
+
+
+def state_tensors(state) -> list:
+    """(name, tensor) of every tensor of a SimState and its generator's
+    state."""
+    out = [("key", state.key.get_state())]
+    for name in state._fields:
+        leaf = getattr(state, name)
+        if hasattr(leaf, "_fields"):
+            out += [(f"{name}.{f}", getattr(leaf, f)) for f in leaf._fields]
+        elif isinstance(leaf, torch.Tensor):
+            out.append((name, leaf))
+    return out
+
+
+def tallies_equal(a, b) -> str:
+    """The first tally (or the event records) that differ, or ''."""
+    for f in a.tallies._fields:
+        if not torch.equal(getattr(a.tallies, f), getattr(b.tallies, f)):
+            return f
+    return "" if torch.equal(a.events.data, b.events.data) else "events"
+
+
+def check_resume(device, out_dir: str) -> int:
+    """CKPT_FIRST steps, then run_to_stop with a walltime budget already
+    spent saves a checkpoint and returns False; a fresh Simulation with the
+    event file opened for append loads it and takes CKPT_RESUMED steps.
+    Against an uninterrupted run of the sum of both: every SimState
+    tensor and the generator's state, every step's tallies and the event
+    file bitwise equal. Returns the flight kernel's launches."""
+    n = CKPT_FIRST + CKPT_RESUMED
+    reset_launches()
+    first = slice_sim(device).attach_outputs(os.path.join(out_dir, "cut"))
+    outs = [first.step() for _ in range(CKPT_FIRST)]
+    ck = os.path.join(out_dir, "ck", "state.npz")
+    if first.run_to_stop(walltime_budget_s=1e-9, checkpoint_path=ck):
+        raise AssertionError("run_to_stop ran to t_stop, no checkpoint")
+    meta = checkpoint.load_meta(ck)
+    if not (meta["ncycle"] == int(first.state.ncycle) == CKPT_FIRST
+            and meta["time"] == float(first.state.time)
+            and meta["key_device"] == torch.device(device).type):
+        raise AssertionError(f"checkpoint meta {meta}")
+    resumed = driver.Simulation(first.cfg, first.zone_init, device=device)
+    resumed.attach_outputs(os.path.join(out_dir, "cut"), resume=True)
+    resumed.state = checkpoint.load_checkpoint(ck, resumed.state)
+    outs += [resumed.step() for _ in range(CKPT_RESUMED)]
+    torch.cuda.synchronize()
+    launches = flight.LAUNCHES
+    whole = slice_sim(device).attach_outputs(os.path.join(out_dir, "whole"))
+    ref = [whole.step() for _ in range(n)]
+    for i, (a, b) in enumerate(zip(outs, ref)):
+        bad = tallies_equal(a, b)
+        if bad:
+            raise AssertionError(f"resume step {i}: {bad} differs")
+    if state_devices(resumed.state) != {torch.device(device).type}:
+        raise AssertionError("resumed state off the card")
+    for (name, a), (_, b) in zip(state_tensors(resumed.state),
+                                 state_tensors(whole.state)):
+        if not (a.dtype == b.dtype and torch.equal(a, b)):
+            raise AssertionError(f"resumed state {name} differs")
+    for sim in (first, resumed, whole):
+        sim.event_writer.close()
+    ev_cut = os.path.join(out_dir, "cut", "evb.dat")
+    ev_whole = os.path.join(out_dir, "whole", "evb.dat")
+    with open(ev_cut, "rb") as fa, open(ev_whole, "rb") as fb:
+        if fa.read() != fb.read():
+            raise AssertionError("resumed event file differs")
+    log(f"checkpoint: {CKPT_FIRST} + {CKPT_RESUMED} steps through "
+        f"{os.path.getsize(ck)} bytes at ncycle {meta['ncycle']} equal "
+        f"{n} uninterrupted steps bitwise (every state tensor, the "
+        f"generator, each step's tallies, the event file of "
+        f"{os.path.getsize(ev_whole)} bytes)")
+    return launches
+
+
+def dump_shapes(sim) -> dict:
+    """{file: (rows, columns)} that the reference's write_diagnostics
+    writes for ``sim`` with extras."""
+    g = sim.cfg.grid
+    nzr = g.nz * g.nr
+    n_vol = sim.tables.e_ph.shape[0]
+    shapes = {"icloss.dat": (g.num_nt * g.nphfield, 3),
+              "seb.dat": (g.num_nt, 3), "nfield.dat": (g.nphfield, 2),
+              "eic.dat": (g.num_nt, 2), "esp.dat": (g.num_nt, 2),
+              "eloss_cy.dat": (g.nz, g.nr), "j_cy.dat": (nzr, n_vol)}
+    for j in range(0, g.nz, 15):
+        for k in range(0, g.nr, 5):
+            name = f"fnt_{j + 1:02d}_{k + 1:02d}_{int(sim.state.ncycle):03d}"
+            shapes[name + ".dat"] = (g.num_nt, 3)
+    if sim.cfg.physics.pair_switch:
+        shapes.update({"n_ph1.dat": (g.n_gg, 1 + nzr),
+                       "n_ph2.dat": (g.n_gg, 1 + nzr),
+                       "j_pa.dat": (nzr, n_vol)})
+    return shapes
+
+
+def check_dumps(sim, out_dir: str, label: str) -> None:
+    """write_diagnostics with extras: every file the reference writes,
+    with its rows and columns, finite."""
+    t0 = time.perf_counter()
+    driver.write_diagnostics(sim, out_dir, extras=True)
+    secs = time.perf_counter() - t0
+    want = dump_shapes(sim)
+    if sorted(os.listdir(out_dir)) != sorted(want):
+        raise AssertionError(f"{label} dumps {sorted(os.listdir(out_dir))}, "
+                             f"expected {sorted(want)}")
+    for name, shape in want.items():
+        a = np.loadtxt(os.path.join(out_dir, name), ndmin=2)
+        if a.shape != shape or not np.all(np.isfinite(a)):
+            raise AssertionError(f"{label} {name}: {a.shape}, expected "
+                                 f"{shape}, finite {np.isfinite(a).all()}")
+    log(f"{label}: write_diagnostics(extras=True) wrote {len(want)} files "
+        f"with the reference's rows and columns in {secs:.3f} s")
+
+
+def check_photon_fill(sim, label: str, cycle_one: bool) -> None:
+    """tests/test_fp.py:105-126's checks on photon_fill_diagnostic: every
+    rate finite, dT_c nonzero in every zone, dT_sy <= 0, d_t_opt > 0, and
+    at cycle 1 (after the first step, where the reference computes it and
+    the JAX test checks it) some zone net cooling."""
+    r = sim.photon_fill_diagnostic()
+    for name, arr in r._asdict().items():
+        if not bool(torch.all(torch.isfinite(arr))):
+            raise AssertionError(f"photon_fill {name} not finite")
+    if not (bool(torch.all(torch.abs(r.dT_c) > 0.0))
+            and bool(torch.all(r.dT_sy <= 0.0))
+            and bool(torch.all(r.d_t_opt > 0.0))
+            and (float(r.dT_total.min()) < 0.0 or not cycle_one)):
+        raise AssertionError(
+            f"photon_fill {label}: |dT_c| min "
+            f"{float(r.dT_c.abs().min()):.4e}, dT_sy max "
+            f"{float(r.dT_sy.max()):.4e}, d_t_opt min "
+            f"{float(r.d_t_opt.min()):.4e}, dT_total min "
+            f"{float(r.dT_total.min()):.4e}")
+    log(f"photon_fill {label}: dT_total [{float(r.dT_total.min()):.4e}, "
+        f"{float(r.dT_total.max()):.4e}] keV/s, dT_c "
+        f"[{float(r.dT_c.min()):.4e}, {float(r.dT_c.max()):.4e}] erg/s, "
+        f"d_t_opt min {float(r.d_t_opt.min()):.4e} s")
+
+
+def time_fp_terms(args: tuple, kwargs: dict) -> None:
+    """fp_step on the Coulomb run's own inputs of its first timed step,
+    with the Coulomb terms and without them (the same zones and field),
+    FP_TURNS times each in turns: the medians, and the substeps."""
+    phys = args[9]
+    runs = {
+        "with": (args, kwargs),
+        "without": (args[:9] + (dataclasses.replace(
+            phys, fp_include_coulomb=False),) + args[10:],
+            dict(kwargs, coulomb=None)),
+    }
+    times = {name: [] for name in runs}
+    subs = {}
+    for turn in range(FP_TURNS):
+        for name in (("with", "without") if turn % 2 == 0
+                     else ("without", "with")):
+            a, k = runs[name]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = driver.fp_step(*a, **k)
+            torch.cuda.synchronize()
+            times[name].append(1e3 * (time.perf_counter() - t0))
+            subs[name] = int(res.substeps)
+    log("fp_step on the Coulomb run's inputs (first timed step), "
+        f"{FP_TURNS} calls each in turns: with the Coulomb terms "
+        f"{statistics.median(times['with']):.3f} ms ({subs['with']} "
+        f"substeps), without {statistics.median(times['without']):.3f} ms "
+        f"({subs['without']} substeps); all with "
+        f"{['%.3f' % t for t in times['with']]}, without "
+        f"{['%.3f' % t for t in times['without']]}")
+
+
+def phase_production(device, card: str) -> Tuple[int, dict]:
+    """The Coulomb corona for COUL_WARM + COUL_TIMED steps with every
+    step's gates, twice from the seed and once without the Coulomb terms;
+    the flight kernel against its plain version on its first timed
+    step's first round; checkpoint and resume; the diagnostic dumps and
+    photon_fill after the Coulomb run and after PAIR_DUMP_STEPS steps of
+    the pair corona. Returns the kernel's launches on the Coulomb run and
+    the resume check, and its kernel check (check_kernel's dict)."""
+    n = COUL_WARM + COUL_TIMED
+    t0 = time.perf_counter()
+    coulomb.build_coulomb_tables(np.asarray(gnt_grid(NUM_NT), np.float32),
+                                 device=device)
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sim = slice_sim(device)
+    init_s = time.perf_counter() - t0
+    log(f"Coulomb tables ({NUM_NT} gamma bins, 24 Te x 8 Tp) built in "
+        f"{build_s:.3f} s on the host ({os.cpu_count()} cores); "
+        f"Simulation with them in {init_s:.3f} s (memoised)")
+    plain_runs = [0]
+    reference, kernel_step = flight.flight_step_reference, flight.flight_step
+    fp_step = driver.fp_step
+    captured = {}
+
+    def counted_reference(*a, **k):
+        plain_runs[0] += 1
+        return reference(*a, **k)
+
+    def captured_step(*a, **k):
+        if captured.get("armed"):
+            names = PhotonArray._fields
+            captured.update(armed=False, args=(
+                {f: x.clone() for f, x in zip(names, a[:12])}, a[12],
+                a[13].clone(), dict(k)))
+        return kernel_step(*a, **k)
+
+    def captured_fp(*a, **k):
+        if captured.get("fp_armed"):
+            captured.update(fp_armed=False, fp_args=(a, k))
+        return fp_step(*a, **k)
+
+    flight.flight_step_reference = counted_reference
+    flight.flight_step = captured_step
+    driver.fp_step = captured_fp
+    try:
+        reset_launches()
+        outs = [sim.step()]
+        check_photon_fill(sim, "at cycle 1", cycle_one=True)
+        outs += [sim.step() for _ in range(COUL_WARM - 1)]
+        captured["armed"] = captured["fp_armed"] = True
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs += [sim.step() for _ in range(COUL_TIMED)]
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+    finally:
+        flight.flight_step_reference = reference
+        flight.flight_step = kernel_step
+        driver.fp_step = fp_step
+    launches = flight.LAUNCHES
+    if not (launches > 0 and plain_runs[0] == 0 and flight.GLOBAL_LAUNCHES
+            == flight.STRAT_LAUNCHES == flight.PAIR_LAUNCHES
+            == flight.WINDOW_LAUNCHES == 0):
+        raise AssertionError(
+            f"Coulomb run launches: inline {launches} plain {plain_runs[0]} "
+            f"global-table {flight.GLOBAL_LAUNCHES} strat "
+            f"{flight.STRAT_LAUNCHES} pair {flight.PAIR_LAUNCHES} windowed "
+            f"{flight.WINDOW_LAUNCHES}")
+    dev_type = torch.device(device).type
+    if state_devices(sim.state) != {dev_type} or any(
+            t.device.type != dev_type for t in sim.coulomb_tables):
+        raise AssertionError("Coulomb run: tensors off the card")
+    for i, out in enumerate(outs):
+        sim.last_outputs = out
+        a = sim.energy_audit()
+        if not abs(a["balance"] - 1.0) < AUDIT_TOL:
+            raise AssertionError(f"Coulomb step {i}: audit {a['balance']}")
+        log(f"Coulomb step {i}: balance {a['balance']:.7f} escaped "
+            f"{a['escaped']:.4e} erg FP substeps {int(out.fp_substeps)} "
+            f"fp_incomplete {int(out.fp_incomplete)} dT_max "
+            f"{float(out.dT_max):.4f}")
+    tea = sim.state.zones.tea
+    if not bool(torch.all(torch.isfinite(tea))):
+        raise AssertionError("Coulomb run: non-finite zone temperatures")
+    timed = outs[COUL_WARM:]
+    histories = sum(int(o.n_tracked) for o in timed)
+    sub = [int(o.fp_substeps) for o in outs]
+    log(f"Coulomb corona on {card}: {1e3 * elapsed / COUL_TIMED:.3f} "
+        f"ms/step, {histories / elapsed:.6e} histories/s, "
+        f"{sum(sub[COUL_WARM:]) / COUL_TIMED:.2f} FP substeps/step, "
+        f"{launches} B1 launches in {n} steps, "
+        f"{per_step(timed, 'trk_rounds'):.2f} rounds/step, tables built in "
+        f"{build_s:.3f} s ({COUL_TIMED} timed steps after {COUL_WARM} "
+        f"warm-up); {sim.summary()}")
+
+    # twice from the seed: bitwise-equal tallies; without the Coulomb
+    # terms: the same steps, their temperatures and substeps beside
+    again = slice_sim(device)
+    off = slice_sim(device, coulomb=False)
+    sub_off = []
+    for i in range(n):
+        bad = tallies_equal(again.step(), outs[i])
+        if bad:
+            raise AssertionError(f"Coulomb step {i}: tally {bad} not "
+                                 "repeatable")
+        sub_off.append(int(off.step().fp_substeps))
+    time_fp_terms(*captured["fp_args"])
+    te_on = float(sim.state.zones.tea.mean())
+    te_off = float(off.state.zones.tea.mean())
+    gap = float(torch.max(torch.abs(sim.state.zones.f_nt
+                                    - off.state.zones.f_nt)))
+    log(f"Coulomb run: tallies bitwise repeatable from the seed ({n} "
+        f"steps); mean Te after {n} steps {te_on:.4f} keV with the Coulomb "
+        f"terms, {te_off:.4f} keV without; FP substeps/step "
+        f"{sum(sub) / n:.2f} with, {sum(sub_off) / n:.2f} without; "
+        f"max |f_nt difference| {gap:.4e}")
+    if not gap > 0.0:
+        raise AssertionError("the Coulomb terms changed no electron "
+                             "distribution")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        check_dumps(sim, os.path.join(tmp, "coulomb"), "Coulomb run")
+        check_photon_fill(sim, f"after {n} steps", cycle_one=False)
+        pairs_sim = pair_sim(device)
+        for _ in range(PAIR_DUMP_STEPS):
+            pairs_sim.step()
+        check_dumps(pairs_sim, os.path.join(tmp, "pairs"), "pair corona")
+        del pairs_sim
+        launches += check_resume(device, tmp)
+    del sim, again, off, outs, timed
+
+    photons, tables, seeds, k = captured["args"]
+    kw = dict(nz=k["nz"], nr=k["nr"], inline=k["inline_scatter"],
+              pairs=k["pair_switch"], weight_floor=k["weight_floor"],
+              max_tries=k["max_tries"])
+    check = check_kernel(device, "Coulomb kernel", photons, tables, seeds,
+                         k["max_iters"], kw, "shared")
+    return launches, check
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1484,12 +1832,15 @@ def main() -> int:
     launches_pairs, launches_pairs_strat = phase_pairs(device, card)
     launches_window, launches_global = phase_large(device, card)
     launches_disk, launches_ec, k_ec = phase_decks(device, card)
+    launches_prod, k_prod = phase_production(device, card)
+    log(f"Coulomb kernel entry: {json.dumps(k_prod)}")
 
     replaces = "compton2d_tpu/transport/flight_pallas2.py:347"
     log(json.dumps({"kernels": [
         {"name": "flight_kernel", "route": "cuda",
          "source": "compton2d_tpu_torch/csrc/flight.cu",
-         "replaces": replaces, "launches": launches_inline + launches_disk,
+         "replaces": replaces,
+         "launches": launches_inline + launches_disk + launches_prod,
          "library_ms": None, **k_inline},
         {"name": "flight_kernel_strat", "route": "cuda",
          "source": "compton2d_tpu_torch/csrc/flight.cu",

@@ -7,9 +7,10 @@ arrive as flat dicts of numpy arrays keyed by dotted field names
 ``np.asarray`` accepts. :func:`from_reference` rebuilds the port's
 NamedTuples on a device, so both packages can run from the same state;
 the spectrum bank comes across inside the ``SourceStatic`` (the
-reference's quantile table, ``spec_inv``, has no counterpart) and
+reference's quantile table, ``spec_inv``, has no counterpart),
 :func:`track_reflection` takes the reflection tables of a reference
-``TrackContext``. This module never imports jax.
+``TrackContext`` and :func:`coulomb_tables` its ``CoulombTables``. This
+module never imports jax.
 """
 from __future__ import annotations
 
@@ -19,6 +20,7 @@ import numpy as np
 import torch
 
 from compton2d_tpu_torch.grid import Grid
+from compton2d_tpu_torch.physics.coulomb import CoulombTables
 from compton2d_tpu_torch.physics.electron_dist import GammaBarTable
 from compton2d_tpu_torch.physics.emissivity import SyncKernelTable
 from compton2d_tpu_torch.state import PhotonArray, SimState, ZoneState
@@ -103,3 +105,10 @@ def track_reflection(ctx: Dict[str, np.ndarray], device="cuda"
     dev = torch.device(device)
     return tuple(_tensor(ctx[name], dev)
                  for name in ("e_ref", "p_ref_t", "w_abs_t"))
+
+
+def coulomb_tables(tables: Dict[str, np.ndarray], device="cuda"
+                   ) -> CoulombTables:
+    """The port's CoulombTables from a flattened reference
+    ``CoulombTables`` (the same field names), on ``device``."""
+    return _build(CoulombTables, tables, "", torch.device(device))

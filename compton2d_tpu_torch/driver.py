@@ -6,22 +6,27 @@ reset, zone pass (B field, emissivities, budget), census roulette, the
 zone sort of the census (grids above 1024 zones), the pair fields from
 the census (pair_switch), emission, tracking through the flight kernel,
 census tallies, the Fokker-Planck electron (and positron) update (with a
-coronal flare's boost of the zones it sees) and the time advance. dt is
-constant, as in the reference's active code, unless ``run.adaptive_dt``
-applies the FP solve's dt ladder.
+coronal flare's boost of the zones it sees, and the Coulomb drift under
+``fp_include_coulomb``) and the time advance. dt is constant, as in the
+reference's active code, unless ``run.adaptive_dt`` applies the FP
+solve's dt ladder.
 
 The port covers the reference's options on one device: thermal and
 file-spectrum boundaries with their time windows, Compton reflection
 (cr_sent 1-4), synchrotron volume emission and shock injection, census
 roulette, stratified tail splitting, gamma-gamma pair physics, coronal
-flares and adaptive dt. ``Simulation`` raises ``NotImplementedError``
-naming the option for device meshes, the Coulomb FP drift, grid edges
-above 127 zones and checkpoints.
+flares, adaptive dt and the Coulomb FP drift. ``Simulation`` raises
+``NotImplementedError`` naming the option for device meshes and grid
+edges above 127 zones.
 
 Run-level outputs (``attach_outputs``): the escaping spectrum, light
 curves and temperature profile accumulate on the host from each step's
 tallies, and each step's event records go to a reference-format event
-file; ``run_to_stop`` advances to ``t_stop`` and writes them.
+file; ``run_to_stop`` advances to ``t_stop`` and writes them, or saves a
+checkpoint when the walltime guard stops it first (``io.checkpoint``;
+a resumed run appends to the event file). Diagnostics:
+``write_diagnostics`` (the reference's dumps) and
+``Simulation.photon_fill_diagnostic`` (the cycle-1 thermal rates).
 """
 from __future__ import annotations
 
@@ -35,13 +40,19 @@ import torch
 from compton2d_tpu_torch import constants as cn
 from compton2d_tpu_torch.config import SimConfig, TimeWindow, ZoneInit
 from compton2d_tpu_torch.units import Scales, make_scales
-from compton2d_tpu_torch.fp.update import fp_step
+from compton2d_tpu_torch.fp.update import fp_step, photon_fill
 from compton2d_tpu_torch.grid import Grid, initial_dt, make_grid
-from compton2d_tpu_torch.io.checkpoint import WalltimeGuard
+from compton2d_tpu_torch.io import outputs as outs
+from compton2d_tpu_torch.io.checkpoint import WalltimeGuard, save_checkpoint
 from compton2d_tpu_torch.io.events import EventFileWriter
 from compton2d_tpu_torch.io.legacy import external_spectrum
 from compton2d_tpu_torch.io.outputs import OutputAccumulator
+from compton2d_tpu_torch.physics import emissivity_extras as ex
 from compton2d_tpu_torch.physics.compton import SIGMA_T, zone_sigma_table
+from compton2d_tpu_torch.physics.coulomb import (
+    CoulombTables,
+    build_coulomb_tables,
+)
 from compton2d_tpu_torch.physics.electron_dist import gnt_grid
 from compton2d_tpu_torch.physics.emissivity import equipartition_b, volume_em
 from compton2d_tpu_torch.physics import pairs
@@ -229,14 +240,9 @@ def _estimate_energy_scale(cfg: SimConfig, zone_init: ZoneInit) -> float:
 
 def check_slice(cfg: SimConfig, mesh=None) -> None:
     """Raise NotImplementedError for options the port does not run yet."""
-    unsupported = [
-        (mesh is not None, "mesh (multi-device)"),
-        (cfg.physics.fp_include_coulomb, "fp_include_coulomb"),
-    ]
-    for bad, name in unsupported:
-        if bad:
-            raise NotImplementedError(f"compton2d_tpu_torch: {name} is not "
-                                      "ported yet")
+    if mesh is not None:
+        raise NotImplementedError("compton2d_tpu_torch: mesh (multi-device) "
+                                  "is not ported yet")
     flight.window_z(cfg.grid.nz, cfg.grid.nr)   # raises above 127 zones
     if cfg.run.n_slots % flight.TILE:
         raise ValueError(f"n_slots={cfg.run.n_slots} must be a multiple of "
@@ -312,6 +318,10 @@ class Simulation:
         self.pair_tables: Optional[PairTables] = (
             build_pair_tables(cfg.grid, self.scales.L, dev)
             if cfg.physics.pair_switch else None)
+        self.coulomb_tables: Optional[CoulombTables] = (
+            build_coulomb_tables(self.tables.gnt.cpu().numpy(),
+                                 lnL=cfg.physics.lnL, device=dev)
+            if cfg.physics.fp_include_coulomb else None)
         self.window_sources = build_window_sources(cfg, self.scales, dev)
         self.src_static = self.window_sources.select(0.0, dt0, 0)
         self.last_outputs: Optional[StepOutputs] = None
@@ -322,16 +332,21 @@ class Simulation:
         initialization and device."""
         return Simulation(cfg, self.zone_init, device=self.device)
 
-    def attach_outputs(self, out_dir: str, event_file: str = "evb.dat"):
+    def attach_outputs(self, out_dir: str, event_file: str = "evb.dat",
+                       resume: bool = False):
         """Enable run-level output accumulation and event-file spooling
-        (the reference's graphics and pNNN_evb.dat outputs)."""
+        (the reference's graphics and pNNN_evb.dat outputs). With
+        ``resume`` (a run continued from a checkpoint) the event file is
+        appended to; otherwise it starts empty. The run-level accumulator
+        starts empty either way: a checkpoint does not hold it, as the
+        reference's does not."""
         self.out_dir = out_dir
         self.outputs = OutputAccumulator(
             self.tables.hu.cpu().numpy(), self.tables.mu_edges.cpu().numpy(),
             self.cfg.grid.lc_bands, self.scales.E,
         )
         self.event_writer = EventFileWriter(
-            os.path.join(out_dir, event_file), self.scales.E)
+            os.path.join(out_dir, event_file), self.scales.E, append=resume)
         return self
 
     def step(self) -> StepOutputs:
@@ -341,6 +356,7 @@ class Simulation:
         self._state, out = _step_impl(
             self._state, self.src_static, self.grid, self.tables, self.cfg,
             self.scales, self._host_ncycle, self.pair_tables,
+            self.coulomb_tables,
         )
         self._host_time += self._host_dt
         self._host_dt_prev = self._host_dt
@@ -371,10 +387,9 @@ class Simulation:
                     verbose: bool = False) -> bool:
         """Advance until time - dt_prev >= t_stop (xec2d.f:110) and write
         the attached outputs. Returns False, without writing them, when
-        the walltime guard (xec2d.f:50-55) stops the run first."""
-        if checkpoint_path:
-            raise NotImplementedError(
-                "compton2d_tpu_torch: checkpoints are not ported yet")
+        the walltime guard (xec2d.f:50-55) stops the run first, after
+        saving the state to ``checkpoint_path`` (when given) with its
+        ``ncycle`` and ``time`` (``io.checkpoint.save_checkpoint``)."""
         guard = WalltimeGuard(
             walltime_budget_s or self.cfg.run.walltime_budget_s,
             self.cfg.run.checkpoint_frac,
@@ -384,6 +399,11 @@ class Simulation:
             if self._host_time - self._host_dt_prev >= self.cfg.run.t_stop:
                 break
             if guard.should_checkpoint():
+                if checkpoint_path:
+                    save_checkpoint(
+                        checkpoint_path, self.state,
+                        {"ncycle": int(self.state.ncycle),
+                         "time": float(self.state.time)})
                 return False
             self.step()
             if verbose:
@@ -408,6 +428,24 @@ class Simulation:
         )
 
     # ---------------- diagnostics -------------------------------------
+    def photon_fill_diagnostic(self):
+        """The cycle-1 explicit thermal-rate table (photon_fill,
+        update2d.f:1747-1921), which the reference logs for ncycle <= 1
+        before the FP farm, from the last step's tallied radiation field
+        and the emissivities of the current zones over dt_prev."""
+        if self.last_outputs is None:
+            raise RuntimeError("run at least one step first")
+        zones, grid = self.state.zones, self.grid
+        l_min = torch.minimum(grid.dz, grid.dr) * torch.ones_like(grid.vol)
+        ve = volume_em(self.tables.e_ph, self.tables.gnt, zones.f_nt,
+                       zones.tea, zones.n_e, zones.B_field, zones.amxwl,
+                       grid.vol, grid.zone_surf, l_min, self.state.dt_prev,
+                       self.scales, f_pair=zones.f_pair)
+        return photon_fill(
+            zones, self.last_outputs.tallies.n_field, self.tables, grid.vol,
+            self.state.dt_prev, ve.eloss_sy, ve.eloss_br, self.cfg.physics,
+            self.scales)
+
     def _check_event_overflow(self, out) -> int:
         """Warn about escaping-photon records dropped beyond capacity."""
         if getattr(self, "_overflow_checked", None) is out:
@@ -575,6 +613,7 @@ def adapt_dt(dt_new, grid: Grid, scales: Scales):
 def _step_impl(state: SimState, src: sourcing.SourceStatic, grid: Grid,
                tables: Tables, cfg: SimConfig, scales: Scales, ncycle: int,
                pair_tables: Optional[PairTables] = None,
+               coulomb_tables: Optional[CoulombTables] = None,
                ) -> Tuple[SimState, StepOutputs]:
     """One step. ``ncycle`` is the host mirror of ``state.ncycle``."""
     g, phys, run = cfg.grid, cfg.physics, cfg.run
@@ -735,7 +774,7 @@ def _step_impl(state: SimState, src: sourcing.SourceStatic, grid: Grid,
             tallies.n_field, tables, grid.vol, float(g.z_max), grid.dz,
             state.dt, state.time, ve.eloss_sy, phys, scales,
             eloss_br=ve.eloss_br, dn_pp=state.dn_pp, dne_pa=state.dne_pa,
-            dnp_pa=state.dnp_pa,
+            dnp_pa=state.dnp_pa, coulomb=coulomb_tables,
         )
         # only apply after the field is established (ncycle > 0); the
         # flare's tna / turb_lev are the FP solve's alone (update2d.f:558)
@@ -772,3 +811,60 @@ def _step_impl(state: SimState, src: sourcing.SourceStatic, grid: Grid,
         nph_raw=nph_raw, nph_fit=nph_fit,
     )
     return new_state, out
+
+
+def write_diagnostics(sim: Simulation, out_dir: str, extras: bool = False):
+    """The reference's diagnostic dumps (SURVEY.md §4): icloss.dat,
+    seb.dat, the fnt snapshots, and from the last step nfield.dat,
+    eic.dat, esp.dat, and under pair_switch n_ph1.dat / n_ph2.dat (the
+    census photon field and its fit).
+
+    ``extras=True`` also dumps the channels the reference deactivates
+    (volume2d.f:253-339, excluded from the active budget in both codes,
+    volume2d.f:347-353, imcgen2d.f:328-331): eloss_cy.dat and j_cy.dat
+    (thermal cyclotron) and under pair_switch j_pa.dat (the
+    pair-annihilation spectrum). Every file has the reference's text for
+    the same arrays."""
+    os.makedirs(out_dir, exist_ok=True)
+    t, s = sim.tables, sim.state
+    if extras:
+        e_ph = t.e_ph.cpu().numpy()
+        tea = s.zones.tea.cpu().numpy()
+        n_e = s.zones.n_e.cpu().numpy()
+        B = s.zones.B_field.cpu().numpy()
+        # zone by zone: ex.cyclotron accumulates into one zone's row, so
+        # the JAX package's write_diagnostics raises on larger grids
+        j_cy = np.stack([
+            ex.cyclotron(e_ph, te, ne, b)[0][0]
+            for te, ne, b in zip(tea.ravel(), n_e.ravel(), B.ravel())
+        ]).reshape(tea.shape + e_ph.shape)
+        np.savetxt(os.path.join(out_dir, "eloss_cy.dat"),
+                   ex.eloss_cy(e_ph, j_cy).reshape(tea.shape[0], -1),
+                   fmt="%14.6e")
+        np.savetxt(os.path.join(out_dir, "j_cy.dat"),
+                   j_cy.reshape(-1, e_ph.shape[0]), fmt="%14.6e")
+        if sim.cfg.physics.pair_switch:
+            j_pa = ex.annihilation_spectrum(
+                e_ph, t.gnt.cpu().numpy(), s.zones.f_nt.cpu().numpy(),
+                s.zones.n_pos.cpu().numpy(), n_e)
+            np.savetxt(os.path.join(out_dir, "j_pa.dat"),
+                       j_pa.reshape(-1, e_ph.shape[0]), fmt="%14.6e")
+    outs.write_icloss(os.path.join(out_dir, "icloss.dat"), t.gnt,
+                      t.e_field, t.f_ic)
+    outs.write_seb(os.path.join(out_dir, "seb.dat"), t.gnt, s.zones.f_nt,
+                   s.zones.n_pos)
+    outs.write_electron_snapshots(out_dir, t.gnt, s.zones.f_nt,
+                                  s.zones.n_pos, int(s.ncycle))
+    o = sim.last_outputs
+    if o is None:
+        return
+    outs.write_nfield(os.path.join(out_dir, "nfield.dat"), t.e_field,
+                      o.tallies.n_field, sim.scales.E)
+    outs.write_eic(os.path.join(out_dir, "eic.dat"), t.gnt, o.tallies.e_ic,
+                   sim.scales.E)
+    outs.write_esp(os.path.join(out_dir, "esp.dat"), t.gnt, o.tallies.n_esp)
+    if sim.cfg.physics.pair_switch:
+        outs.write_nph(os.path.join(out_dir, "n_ph1.dat"), t.e_gg,
+                       o.nph_raw)
+        outs.write_nph(os.path.join(out_dir, "n_ph2.dat"), t.e_gg,
+                       o.nph_fit)

@@ -9,9 +9,13 @@ distribution goes through the same Chang-Cooper operator; masked implicit
 substeps (Chang-Cooper + PCR) with the geometric x1.25 floor backoff for
 stiff zones, in a bounded loop whose condition is read on the host; the
 temperature from <gamma> through the gamma_bar table; the dT_max -> dt
-ladder and the effective nonthermal refit.
+ladder and the effective nonthermal refit. Under fp_include_coulomb the
+exact Moller and e-p Coulomb coefficients (``physics.coulomb`` tables,
+or without tables the Spitzer-like e-p limits of ``_coulomb_drift``)
+join the operator.
 
-Not ported: the Coulomb drift (fp_include_coulomb); it raises.
+``photon_fill``: the reference's cycle-1 explicit thermal-rate table, a
+diagnostic only.
 """
 from __future__ import annotations
 
@@ -42,19 +46,18 @@ class FPResult(NamedTuple):
 def fp_step(
     zones: ZoneState, n_field, tables: Tables, vol, z_max: float, dz, dt,
     time, eloss_sy, phys: PhysicsConfig, scales: Scales,
-    eloss_br=None, dn_pp=None, dne_pa=None, dnp_pa=None,
+    eloss_br=None, dn_pp=None, dne_pa=None, dnp_pa=None, coulomb=None,
 ) -> FPResult:
     """All energies scaled by scales.E, volumes by scales.L^3. Under
     pair_switch, ``dn_pp`` (pair production), ``dne_pa`` and ``dnp_pa``
     (electron and positron annihilation), each (nz, nr, num_nt) in
     cm^-3 s^-1, act on the electrons and the positrons; all three are
-    required then. The solve runs in the precision of ``zones.f_nt``:
-    float32 as the reference on every path; float64 zones (with the
-    tables' gamma_bar in float64) are a precision check of the float32
-    solve."""
-    if phys.fp_include_coulomb:
-        raise NotImplementedError(
-            "fp_step: fp_include_coulomb is not ported yet")
+    required then. Under ``phys.fp_include_coulomb`` the Coulomb terms
+    come from ``coulomb`` (``physics.coulomb.CoulombTables``) when given,
+    else from ``_coulomb_drift``. The solve runs in the precision of
+    ``zones.f_nt``: float32 as the reference on every path; float64 zones
+    (with the tables' gamma_bar in float64) are a precision check of the
+    float32 solve."""
     nz, nr, num_nt = zones.f_nt.shape
     Z = nz * nr
     f32, i32 = zones.f_nt.dtype, torch.int32
@@ -154,6 +157,9 @@ def fp_step(
         / (2.0 * inj.gauss_sigma**2)
     )
     gauss_prof[-1] = 0.0
+    if phys.fp_include_coulomb and coulomb is not None:
+        # the e-p rows depend on the (fixed) proton temperature only
+        dg_cp_t, disp_cp_t = coulomb.proton_rows(tna)
 
     it = 0
     t_fp = torch.zeros(Z, dtype=f32, device=dev)
@@ -253,8 +259,22 @@ def fp_step(
         dgdt = dg_sy + dg_ic + dg_A
         if dg_br is not None:
             dgdt = dgdt + dg_br
-        a, b, c = chang_cooper_coeffs(gnt, dgdt, disp_A.expand(Z, num_nt),
-                                      d_t, t_esc)
+        disp = disp_A.expand(Z, num_nt)
+        if phys.fp_include_coulomb:
+            if coulomb is not None:
+                # exact Moller/Coulomb tables (update2d.f:898-988) at this
+                # substep's Te, on the lepton and proton densities after
+                # injection and escape
+                dg_ce_t, disp_ce_t = coulomb.electron_rows(te)
+                dgdt = dgdt + dg_ce_t * nlept_z[:, None] \
+                    + dg_cp_t * npz[:, None]
+                disp = disp + disp_ce_t * nlept_z[:, None] \
+                    + disp_cp_t * npz[:, None]
+            else:
+                dg_cp, disp_cp = _coulomb_drift(gamma, tna, npz, lnL)
+                dgdt = dgdt + dg_cp
+                disp = disp + disp_cp
+        a, b, c = chang_cooper_coeffs(gnt, dgdt, disp, d_t, t_esc)
         f_new = pcr_solve(a, b, c, f_inj)
         f_new[..., 0] = 0.0
         f_new[..., -1] = 0.0
@@ -360,3 +380,112 @@ def fp_step(
         substeps=torch.tensor(it, dtype=i32, device=dev),
         incomplete=incomplete,
     )
+
+
+class PhotonFillRates(NamedTuple):
+    """Per-zone explicit thermal heating/cooling rates [erg/s per
+    electron] + total [keV/s] (photon_fill, update2d.f:1747-1921)."""
+
+    dT_coulp: torch.Tensor   # (nz, nr) proton-electron Coulomb
+    dT_sy: torch.Tensor      # (nz, nr) synchrotron cooling
+    dT_c: torch.Tensor       # (nz, nr) Compton (from n_field x F_IC)
+    dT_br: torch.Tensor      # (nz, nr) bremsstrahlung cooling
+    dT_A: torch.Tensor       # (nz, nr) hydromagnetic acceleration
+    dT_total: torch.Tensor   # (nz, nr) [keV/s]
+    d_t_opt: torch.Tensor    # (nz, nr) [s] df_T-limited step suggestion
+    te_est: torch.Tensor     # (nz, nr) [keV] explicit Te estimate
+
+
+def photon_fill(zones: ZoneState, n_field, tables: Tables, vol, dt,
+                eloss_sy, eloss_br, phys: PhysicsConfig,
+                scales: Scales) -> PhotonFillRates:
+    """First-cycle explicit thermal-rate estimate (photon_fill,
+    update2d.f:1747-1921): the reference computes it for ncycle <= 1
+    before the FP farm, overwrites its Te_new with FP_calc's and leaves
+    its dt adjustment commented out (update2d.f:1887,1914-1915), so it is
+    a cycle-1 diagnostic: the per-channel rates it logs. Rates as in
+    update2d.f:1850-1886; n_field (nz, nr, nphfield) is the scaled field
+    tally, vol [L^3], eloss_* [E] per step."""
+    nz, nr, num_nt = zones.f_nt.shape
+    Z = nz * nr
+    f32 = torch.float32
+    gnt = tables.gnt.to(f32)
+    dgw = torch.cat([torch.diff(gnt), gnt.new_zeros(1)])
+
+    n_p = zones.n_e.reshape(Z).to(f32)
+    tea = zones.tea.reshape(Z).to(f32)
+    tna = zones.tna.reshape(Z).to(f32)
+    tlev = zones.turb_lev.reshape(Z).to(f32)
+    B = torch.clamp_min(zones.B_field.reshape(Z).to(f32), 1e-20)
+    f_nt = zones.f_nt.reshape(Z, num_nt).to(f32)
+    volume = vol.reshape(Z).to(f32)
+    dt32 = torch.as_tensor(dt, dtype=f32, device=f_nt.device)
+
+    th_p = tna / 9.382e5                       # update2d.f:1846
+    th_e = tea / 5.11e2
+    g_av = tables.gamma_bar.forward(torch.clamp_min(th_e, 1e-6))
+    gamma_R = 2.1e-3 * torch.sqrt(n_p) / (B * torch.sqrt(g_av))
+
+    tsum = th_e + th_p
+    h_T = 0.79788 * (2.0 * (tsum * tsum) + 2.0 * tsum + 1.0) / (
+        torch.clamp_min(tsum, 1e-12) ** 1.5
+        * (1.0 + 1.875 * th_e + 0.8203 * (th_e * th_e))
+    )
+    dT_coulp = 2.608e-26 * n_p * phys.lnL * (tna - tea) * h_T
+
+    # Eloss [scaled E] -> erg, vol [L^3] -> cm^3: the ratio E/L^3 folded
+    # on the host (either factor alone can overflow f32)
+    k_ul = float(np.float32(scales.E / scales.L3))
+    y = gamma_R / g_av
+    per_e = (eloss_sy.reshape(Z).to(f32) / volume * k_ul
+             / (torch.clamp_min(n_p, 1e-30) * dt32))
+    dT_sy = torch.where(
+        y < 100.0,
+        -(2.0 / 3.0) * per_e / torch.exp(torch.clamp_max(y, 100.0)),
+        0.0,
+    )
+    dT_br = (-(2.0 / 3.0) * eloss_br.reshape(Z).to(f32) / volume * k_ul
+             / (torch.clamp_min(n_p, 1e-30) * dt32))
+
+    # dT_c from the same dg_ic contraction as FP_calc
+    # (update2d.f:1864-1872)
+    nf = n_field.reshape(Z, -1).to(f32)
+    dg_ic = -torch.matmul(nf, tables.f_ic.to(f32).T) * (
+        float(np.float32(scales.nfield_to_dgic)) / volume[:, None])
+    dT_c = -(2.0 / 3.0) * float(np.float32(cn.MEC2_ERG)) * torch.sum(
+        dg_ic * f_nt * dgw[None, :], dim=-1)
+
+    dT_A = tlev * dT_coulp
+    dT_total = (dT_coulp + dT_sy + dT_br + dT_c + dT_A) / 1.6e-9
+
+    # zones without protons are skipped (update2d.f:1808-1809)
+    skip = (n_p < 1e-11) | (tna < 1.0)
+    dT_total = torch.where(skip, 0.0, dT_total)
+    d_t_opt = cn.DF_T * tea / torch.clamp_min(torch.abs(dT_total), 1e-30)
+    te_est = tea + dt32 * dT_total
+
+    sh = (nz, nr)
+    return PhotonFillRates(
+        dT_coulp=dT_coulp.reshape(sh), dT_sy=dT_sy.reshape(sh),
+        dT_c=dT_c.reshape(sh), dT_br=dT_br.reshape(sh),
+        dT_A=dT_A.reshape(sh), dT_total=dT_total.reshape(sh),
+        d_t_opt=d_t_opt.reshape(sh), te_est=te_est.reshape(sh),
+    )
+
+
+def _coulomb_drift(gamma, tna, n_p, lnL):
+    """Electron-proton Coulomb drift + dispersion for fp_include_coulomb
+    without tables (update2d.f:898-907, 979-988; the exact Intdgcp
+    integrals approximated by their nonrelativistic Spitzer-like
+    limits)."""
+    th_p = tna / 9.382e5
+    beta = torch.sqrt(torch.clamp_min(1.0 - 1.0 / (gamma * gamma), 1e-20))
+    pref = 1.194e-14 * n_p[:, None] * lnL
+    denom = (
+        (1.0 + 1.875 * th_p + 0.8203 * (th_p * th_p))[:, None]
+        * torch.sqrt(torch.clamp_min(th_p, 1e-12))[:, None]
+        * (gamma * gamma)[None, :] * beta[None, :]
+    )
+    dg_cp = -pref / torch.clamp_min(denom, 1e-30) * (gamma[None, :] - 1.0)
+    disp_cp = torch.abs(dg_cp) * torch.clamp_min(th_p, 1e-12)[:, None]
+    return dg_cp, disp_cp

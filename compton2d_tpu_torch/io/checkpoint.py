@@ -1,9 +1,124 @@
-"""The walltime guard of a long run (the port's copy of
-``compton2d_tpu.io.checkpoint.WalltimeGuard``). Checkpoint files are not
-ported yet."""
+"""Checkpoint / resume (the port's counterpart of
+``compton2d_tpu.io.checkpoint``, single process).
+
+The Fortran reference dumps its whole COMMON block per rank to text files
+(``write_record.f``/``read_record.f``) when 95 % of the assumed 8-hour
+walltime is spent (``xec2d.f:24,50-55``), and resumes when
+``p000_misc.dat`` exists (``compton2d.f:16-21``).
+
+Here every tensor of ``SimState`` (the zone fields, the photon SoA with
+its census population, the clocks, ``ed_abs``/``ed_ref``, ``k_gg`` and
+the pair rates) and the state of its ``torch.Generator`` go to one
+``.npz``, written to a temporary file and renamed over ``path``; the meta
+dict (with the generator's device type added) goes beside it as
+``path + ".meta.json"``. Every random draw of a step, the per-round
+scatter seeds included, comes from that generator, so a resumed run
+continues bit for bit. A CUDA generator's state (Philox seed and offset)
+is not a CPU generator's (mt19937): a checkpoint is restored only onto
+the device type that wrote it.
+"""
 from __future__ import annotations
 
+import json
+import os
 import time
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from compton2d_tpu_torch.state import PhotonArray, SimState, ZoneState
+
+_KEY = "key"
+
+
+def _flatten(state: SimState) -> Dict[str, torch.Tensor]:
+    """{dotted field name: tensor} of every tensor in ``state``."""
+    out = {}
+    for name in SimState._fields:
+        leaf = getattr(state, name)
+        if name == _KEY:
+            continue
+        if hasattr(leaf, "_fields"):
+            for sub in leaf._fields:
+                out[f"{name}.{sub}"] = getattr(leaf, sub)
+        else:
+            out[name] = leaf
+    return out
+
+
+def _atomic_write(path: str, write) -> None:
+    """``write(fh)`` into a temporary file beside ``path``, flushed to
+    disk, then renamed over ``path``."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    tmp = path + ".tmp"
+    with open(tmp, "wb") as fh:
+        write(fh)
+        fh.flush()
+        os.fsync(fh.fileno())
+    os.replace(tmp, path)
+
+
+def save_checkpoint(path: str, state: SimState,
+                    meta: Optional[dict] = None) -> None:
+    """Dump every tensor of ``state`` and its generator's state to
+    ``path``, and ``meta`` with the generator's device type (key
+    ``"key_device"``) to ``path + ".meta.json"``."""
+    arrays = {k: v.detach().cpu().numpy() for k, v in _flatten(state).items()}
+    arrays[_KEY] = state.key.get_state().numpy()
+    device_type = state.key.device.type
+    arrays["key_device"] = np.asarray(device_type)
+    _atomic_write(path, lambda fh: np.savez(fh, **arrays))
+    meta = dict(meta or {}, key_device=device_type)
+    _atomic_write(path + ".meta.json",
+                  lambda fh: fh.write(json.dumps(meta).encode()))
+
+
+def load_checkpoint(path: str, like_state: SimState) -> SimState:
+    """The state saved by :func:`save_checkpoint`, on the device of
+    ``like_state``, whose shapes and dtypes it must have. Raises
+    ValueError when the checkpoint's generator was on another device type
+    than ``like_state.key``, or a tensor does not match."""
+    device = like_state.key.device
+    like = _flatten(like_state)
+    with np.load(path) as data:
+        saved_type = str(data["key_device"])
+        if saved_type != device.type:
+            raise ValueError(
+                f"checkpoint {path}: its random stream is a {saved_type} "
+                f"generator's, the run's is on {device.type}; resume on "
+                f"{saved_type}")
+        tensors = {}
+        for name, ref in like.items():
+            t = torch.from_numpy(data[name])
+            if t.shape != ref.shape or t.dtype != ref.dtype:
+                raise ValueError(
+                    f"checkpoint {path}: {name} is {t.dtype}"
+                    f"{tuple(t.shape)}, the run's {ref.dtype}"
+                    f"{tuple(ref.shape)}")
+            tensors[name] = t.to(ref.device)
+        gen = torch.Generator(device=device)
+        gen.set_state(torch.from_numpy(data[_KEY].copy()))
+
+    def group(cls, prefix):
+        return cls(**{f: tensors[f"{prefix}.{f}"] for f in cls._fields})
+
+    kw = {}
+    for name in SimState._fields:
+        if name == "zones":
+            kw[name] = group(ZoneState, name)
+        elif name == "photons":
+            kw[name] = group(PhotonArray, name)
+        elif name == _KEY:
+            kw[name] = gen
+        else:
+            kw[name] = tensors[name]
+    return SimState(**kw)
+
+
+def load_meta(path: str) -> dict:
+    with open(path + ".meta.json") as fh:
+        return json.load(fh)
 
 
 class WalltimeGuard:

@@ -62,13 +62,16 @@ def _n_dropped(events) -> int:
 class EventFileWriter:
     """Append reference-format event records to a text file."""
 
-    def __init__(self, path: str, energy_scale: float):
+    def __init__(self, path: str, energy_scale: float, append: bool = False):
+        """``append``: continue the file of the run this one resumes (the
+        reference's writer truncates here too, so a resumed run of the
+        JAX package loses the records written before its checkpoint).
+        Otherwise the file starts empty, so a re-run into an existing path
+        never mixes stale records with new ones."""
         self.path = path
         self.energy_scale = energy_scale
         os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-        # truncate on open, so a re-run into an existing path never mixes
-        # stale records with new ones
-        self._fh = open(path, "w")
+        self._fh = open(path, "a" if append else "w")
         self.n_written = 0
         self.n_dropped = 0
 

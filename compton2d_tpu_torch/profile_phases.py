@@ -15,6 +15,7 @@ JSON object::
   python -m compton2d_tpu_torch.profile_phases --config pair_corona
   python -m compton2d_tpu_torch.profile_phases --config large_corona
   python -m compton2d_tpu_torch.profile_phases --config disk_deck
+  python -m compton2d_tpu_torch.profile_phases --config coulomb
 
 ``mrk421`` is the dense Mrk 421 run (10x4 zones, 131072 slots, nst
 200000, n_e 2e6, stratified splitting with gamma_c 3e4 and 64 copies)
@@ -27,7 +28,9 @@ path's table widths) and ``grid_40x30`` the reference's windowed-test grid
 at the main path's widths and slots; ``disk_deck`` and ``ec_deck`` the
 reference-format decks of ``compton2d_tpu_torch.decks`` loaded by the
 legacy importer (8x4 zones with reflection, a flare and adaptive dt;
-10x5 zones lit by a diskgen file), 131072 slots, nst 60000; each for 2
+10x5 zones lit by a diskgen file), 131072 slots, nst 60000; ``coulomb`` the
+benchmark-size corona with the Coulomb FP drift (``fp_include_coulomb``;
+its tables are built before the runs, outside the times); each for 2
 warm-up and ``--steps`` timed steps. Beside the times it prints the
 tracking rounds, the lower and outer-disk reflections, the lanes
 frozen with FLAG_WINDOW and the stragglers sent to census per step, the
@@ -85,7 +88,8 @@ def make_sim(config: str, device):
     }.get(config, (8, 4, 60000, 1 << 17))
     return small_corona(nz=nz, nr=nr, nst=nst, n_slots=n_slots, num_nt=200,
                         n_vol=400, nphfield=400, t_const=False,
-                        max_flight_iters=256, device=device)
+                        max_flight_iters=256, device=device,
+                        fp_include_coulomb=config == "coulomb")
 
 
 def drive(sim, config: str, steps: int, warm: int, on_timed=None):
@@ -115,7 +119,7 @@ def main(argv=None):
     ap.add_argument("--config",
                     choices=("mrk421", "small_corona", "pair_corona",
                              "large_corona", "grid_40x30", "disk_deck",
-                             "ec_deck"),
+                             "ec_deck", "coulomb"),
                     default="mrk421")
     ap.add_argument("--steps", type=int, default=4)
     ap.add_argument("--warm", type=int, default=2)

@@ -32,7 +32,13 @@ each printed line by line:
     and nst ``--nst``, written once and loaded by each package's legacy
     importer: per step the audit, Te range, mean Te, FP substeps and
     dT_max of the reference (XLA tracking path, at the port's energy
-    unit) and of the port's plain CPU path, over ``--seeds``.
+    unit) and of the port's plain CPU path, over ``--seeds``;
+``coulomb``
+    the main path's corona at full width (8x4 zones, 200 gamma and 400
+    energy bins, as on the card) with ``--slots`` slots and nst ``--nst``,
+    with the Coulomb FP drift on and then off: per step the mean Te, the
+    mean Te of each z row, the FP substeps and the audit of the reference
+    (Pallas path, interpret mode) and of the port, over ``--seeds``.
 
 Run from the repository root::
 
@@ -42,6 +48,8 @@ Run from the repository root::
     JAX_PLATFORMS=cpu python tests/compare_pairs.py fp --step 1 --size tiny
     python tests/compare_pairs.py precision --steps 8
     JAX_PLATFORMS=cpu python tests/compare_pairs.py deck --deck ec_deck
+    JAX_PLATFORMS=cpu python tests/compare_pairs.py coulomb --seeds 0 \
+        --steps 6 --slots 16384 --nst 6000
 """
 import argparse
 import dataclasses
@@ -334,10 +342,36 @@ def deck(name, seeds, steps, n_slots, nst):
                       f"{float(_np(sim.state.dt)):.6e} s", flush=True)
 
 
+def coulomb(seeds, steps, n_slots, nst):
+    import jax
+
+    from compton2d_tpu_torch import examples as pex
+
+    cfg = dict(nz=8, nr=4, nst=nst, n_slots=n_slots, num_nt=200, n_vol=400,
+               nphfield=400, t_const=False, max_flight_iters=256)
+    for on in (True, False):
+        c = dict(cfg, fp_include_coulomb=on)
+        ref = _reference(c, "on")
+        init = ref.state
+        for s in seeds:
+            ref.state = init._replace(key=jax.random.PRNGKey(s))
+            port = pex.small_corona(**c, seed=s, device="cpu")
+            for label, sim in (("reference", ref), ("port", port)):
+                for i in range(steps):
+                    out = sim.step()
+                    tea = _np(sim.state.zones.tea)
+                    print(f"coulomb {'on' if on else 'off'} {label} seed {s} "
+                          f"step {i}: balance "
+                          f"{sim.energy_audit()['balance']:.6f} Te mean "
+                          f"{tea.mean():.2f} keV, by z row "
+                          f"{' '.join(f'{t:.1f}' for t in tea.mean(1))}; FP "
+                          f"substeps {int(_np(out.fp_substeps))}", flush=True)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("what", choices=("te", "trajectory", "fp",
-                                     "precision", "deck"))
+                                     "precision", "deck", "coulomb"))
     ap.add_argument("--seeds", type=int, nargs="+", default=[0, 1])
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--step", type=int, default=3)
@@ -356,6 +390,8 @@ def main(argv=None):
         precision(args.steps)
     elif args.what == "deck":
         deck(args.deck, args.seeds, args.steps, args.slots, args.nst)
+    elif args.what == "coulomb":
+        coulomb(args.seeds, args.steps, args.slots, args.nst)
     else:
         fp(args.step, args.size)
 

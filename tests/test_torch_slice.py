@@ -133,7 +133,6 @@ def _config(change, lower_spectra=()):
 
 @pytest.mark.parametrize("change", [
     dict(mesh=True),
-    dict(physics=dict(fp_include_coulomb=True)),
     dict(grid=dict(nz=128, nr=2)),
 ])
 def test_options_outside_the_slice_raise(change):
@@ -150,12 +149,13 @@ def test_options_outside_the_slice_raise(change):
     dict(physics=dict(flare=pcfg.FlareConfig(
         enabled=True, r_flare=5e14, z_flare=5e14, sigma_r=5e14,
         sigma_z=5e14, sigma_t=1e4, amplitude=1.0))),
+    dict(physics=dict(fp_include_coulomb=True)),
 ])
 def test_options_of_the_slice_run(change, tmp_path):
     """The options the port ran outside its slice before boundary
     reflection, file-spectrum boundaries (here a diskgen file on every
-    lower ring), adaptive dt and flares were ported: each builds a CPU
-    Simulation that takes a step with finite results."""
+    lower ring), adaptive dt, flares and the Coulomb FP drift were ported:
+    each builds a CPU Simulation that takes a step with finite results."""
     from compton2d_tpu_torch.io import diskgen
 
     files = ()

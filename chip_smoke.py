@@ -119,7 +119,24 @@ Phases (any failure raises and the script exits non-zero):
    steps, ``run_to_stop`` with a spent walltime budget (a checkpoint,
    False), and 3 steps of a fresh Simulation resumed from it with the
    event file appended to, bitwise equal to 6 uninterrupted steps (every
-   state tensor, the generator, each step's tallies, the event file).
+   state tensor, the generator, each step's tallies, the event file);
+9. two ranks on one card: the main path's corona sharded over 2 ranks on
+   cuda:0 (spawned processes, gloo, a ``file://`` rendezvous; each rank
+   65536 slots and 16 of the 32 zones in the zone farm), 2 warm-up and 4
+   timed steps through ``Simulation.step()``: every step's audit on every
+   rank, finite temperatures, tallies and zone state bitwise equal across
+   the ranks, B1 launches on each rank and no other mode, the ms/step,
+   histories/s, the collective's ms per step and FP substeps; two runs
+   from the seed bitwise equal; ``zone_shard`` on equal to off over 3
+   steps (zone state and tallies, bitwise); 2 + 2 steps through a
+   checkpoint with the walltime guard tripped on rank 1 only, bitwise
+   equal to 4 steps (every rank's state, the tallies, both pNNN_evb.dat
+   files); the flight kernel against its plain version, as in phase 2, on
+   rank 0's first-round inputs of its first timed step; and 1 rank (this
+   process) against 2 ranks, 6 seeds a side and 3 steps each:
+   tools/pallas_e2e.py's test (z < 4 or a deviation below 1%) on escaped,
+   census, edep_total, scatter_gain and te_mean, each deviation logged
+   beside its noise floor.
 
 The first five phases' launches of the path-shaped modes read their
 tables from shared memory (checked with the wrapper's count of
@@ -127,7 +144,9 @@ global-table launches), the windowed and 32x32 ones from global memory;
 in phase 7 the disk deck's and in phase 8 the Coulomb corona's from
 shared memory (counted in the 8x4 entry of the kernels line) and the
 blazar blob's (10x5 zones, 252,064 bytes) from global memory, in an
-entry of their own, timed on that deck's inputs.
+entry of their own, timed on that deck's inputs. Phase 9's launches (the
+same mode and tables on each rank's half of the slots) count in the 8x4
+entry too.
 
 Each kernel's wrapper counts its launches; the counts are set to 0 just
 before each main path and read just after. The line before the last is a
@@ -139,7 +158,9 @@ the last line is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -156,6 +177,7 @@ from compton2d_tpu_torch.config import RunConfig
 from compton2d_tpu_torch.constants import SIGMA_THOMSON
 from compton2d_tpu_torch.examples import small_corona
 from compton2d_tpu_torch.io import checkpoint
+from compton2d_tpu_torch.parallel import distributed
 from compton2d_tpu_torch.physics import coulomb
 from compton2d_tpu_torch.state import PhotonArray
 from compton2d_tpu_torch.physics.electron_dist import gnt_grid
@@ -1798,6 +1820,307 @@ def phase_production(device, card: str) -> Tuple[int, dict]:
     return launches, check
 
 
+# ---------------------------------------------------------------------------
+# phase 9: two ranks on one card
+# ---------------------------------------------------------------------------
+RANKS = 2
+P9_WARM, P9_TIMED, P9_FARM_STEPS, P9_CUT = 2, 4, 3, 2
+# the 1-vs-2-rank test: seeds a side, steps a seed, tools/pallas_e2e.py's
+# channels, z threshold and relative floor
+Z_SEEDS, Z_STEPS = 6, 3
+Z_CHANNELS = ("escaped", "census", "edep_total", "scatter_gain", "te_mean")
+CAL_MULT, REL_FLOOR = 4.0, 0.01
+ONE_RANK_SEED, TWO_RANK_SEED = 300, 400
+RANKS_TIMEOUT, RANKS_INIT_TIMEOUT = 600.0, 120.0
+
+
+def tensors_digest(tensors) -> str:
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().cpu().reshape(-1).view(torch.uint8).numpy()
+                 .tobytes())
+    return h.hexdigest()
+
+
+def zones_digest(sim) -> str:
+    return tensors_digest(list(sim.state.zones))
+
+
+def zone_differences(a, b) -> list:
+    """(field, max |difference|) of every zone field that differs."""
+    return [(f, float(torch.max(torch.abs(getattr(a, f).double()
+                                          - getattr(b, f).double()))))
+            for f in a._fields if not torch.equal(getattr(a, f),
+                                                  getattr(b, f))]
+
+
+def z_channels(sim, out) -> dict:
+    """tools/pallas_e2e.py's channels of a replicate after its last step."""
+    a = sim.energy_audit()
+    return {"escaped": a["escaped"], "census": a["census"],
+            "edep_total": float(torch.abs(out.tallies.edep).sum()),
+            "scatter_gain": a["scatter_gain"],
+            "te_mean": float(sim.state.zones.tea.mean())}
+
+
+def z_side(device, seed0: int, mesh=None) -> Tuple[list, float]:
+    """Z_SEEDS replicates of Z_STEPS steps: their channels, and the
+    ms/step over all their steps."""
+    reps, steps_s = [], 0.0
+    for k in range(Z_SEEDS):
+        sim = bench_sim(device, seed=seed0 + k, mesh=mesh)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(Z_STEPS):
+            out = sim.step()
+        torch.cuda.synchronize()
+        steps_s += time.perf_counter() - t0
+        reps.append(z_channels(sim, out))
+    return reps, 1e3 * steps_s / (Z_SEEDS * Z_STEPS)
+
+
+def rank_main_path(mesh, device) -> dict:
+    """The sharded main path on this rank: P9_WARM + P9_TIMED steps, its
+    gates' readings, and the flight kernel's inputs of the first timed
+    step's first round."""
+    captured, local_substeps = {}, []
+    kernel_step, fp_step = flight.flight_step, driver.fp_step
+
+    def counted_fp(*a, **k):
+        res = fp_step(*a, **k)
+        local_substeps.append(int(res.substeps))
+        return res
+
+    def captured_step(*a, **k):
+        if captured.get("armed"):
+            names = PhotonArray._fields
+            captured.update(armed=False, args=(
+                {f: x.clone() for f, x in zip(names, a[:12])}, a[12],
+                a[13].clone(), dict(k)))
+        return kernel_step(*a, **k)
+
+    sim = bench_sim(device, mesh=mesh)
+    flight.flight_step = captured_step
+    driver.fp_step = counted_fp
+    try:
+        reset_launches()
+        outs = [sim.step() for _ in range(P9_WARM)]
+        captured["armed"] = True
+        torch.cuda.synchronize()
+        comm0, calls0, bytes0 = mesh.comm_s, mesh.comm_calls, mesh.comm_bytes
+        t0 = time.perf_counter()
+        outs += [sim.step() for _ in range(P9_TIMED)]
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+    finally:
+        flight.flight_step = kernel_step
+        driver.fp_step = fp_step
+    launches = dict(inline=flight.LAUNCHES, strat=flight.STRAT_LAUNCHES,
+                    pair=flight.PAIR_LAUNCHES, window=flight.WINDOW_LAUNCHES,
+                    global_tables=flight.GLOBAL_LAUNCHES)
+    steps = []
+    for out in outs:
+        sim.last_outputs = out
+        steps.append(dict(
+            balance=sim.energy_audit()["balance"],
+            substeps=int(out.fp_substeps), rounds=int(out.tallies.trk_rounds),
+            tallies=tensors_digest(list(out.tallies))))
+    timed = outs[P9_WARM:]
+    return dict(
+        launches=launches, steps=steps, zones=zones_digest(sim),
+        local_substeps=local_substeps,
+        te_finite=bool(torch.all(torch.isfinite(sim.state.zones.tea))),
+        te=(float(sim.state.zones.tea.min()), float(sim.state.zones.tea.max())),
+        ms_step=1e3 * elapsed / P9_TIMED,
+        histories_s=sum(int(o.n_tracked) for o in timed) / elapsed,
+        comm_ms_step=1e3 * (mesh.comm_s - comm0) / P9_TIMED,
+        comm_calls_step=(mesh.comm_calls - calls0) / P9_TIMED,
+        comm_bytes_step=(mesh.comm_bytes - bytes0) / P9_TIMED,
+        slots=sim.state.photons.n_slots,
+        outs=outs, captured=captured.get("args"), summary=sim.summary())
+
+
+def rank_farm_and_repeat(mesh, device, ref_outs) -> dict:
+    """zone_shard on (a second run from the seed, against the main path's
+    first steps) and off, P9_FARM_STEPS steps each."""
+    on = bench_sim(device, mesh=mesh)
+    off = on.with_config(dataclasses.replace(on.cfg, run=dataclasses.replace(
+        on.cfg.run, zone_shard=False)))
+    repeat, farm = [], []
+    for i in range(P9_FARM_STEPS):
+        a, b = on.step(), off.step()
+        bad = tallies_equal(a, ref_outs[i])
+        if bad:
+            repeat.append(f"step {i} {bad}")
+        bad = tallies_equal(a, b)
+        if bad:
+            farm.append(f"step {i} {bad}")
+    farm += [f"zones {f} max |diff| {d:.3e}"
+             for f, d in zone_differences(on.state.zones, off.state.zones)]
+    return dict(repeat=repeat, farm=farm,
+                substeps_off=int(b.fp_substeps), substeps_on=int(a.fp_substeps))
+
+
+def rank_resume(mesh, device, out_dir: str) -> dict:
+    """P9_CUT steps, run_to_stop with the walltime guard tripped on the
+    last rank only, P9_CUT steps of a fresh Simulation resumed from the
+    checkpoint; against 2 P9_CUT uninterrupted steps."""
+    cut = bench_sim(device, mesh=mesh).attach_outputs(
+        os.path.join(out_dir, "cut"))
+    outs = [cut.step() for _ in range(P9_CUT)]
+    ck = os.path.join(out_dir, "ck", "state.npz")
+    completed = cut.run_to_stop(
+        walltime_budget_s=1e-9 if mesh.rank == mesh.world - 1 else 0.0,
+        checkpoint_path=ck)
+    resumed = driver.Simulation(cut.cfg, cut.zone_init, device=device,
+                                mesh=mesh)
+    resumed.attach_outputs(os.path.join(out_dir, "cut"), resume=True)
+    resumed.state = checkpoint.load_checkpoint(ck, resumed.state, mesh=mesh)
+    outs += [resumed.step() for _ in range(P9_CUT)]
+    whole = bench_sim(device, mesh=mesh).attach_outputs(
+        os.path.join(out_dir, "whole"))
+    ref = [whole.step() for _ in range(2 * P9_CUT)]
+    torch.cuda.synchronize()
+    bad = [f"step {i} {t}" for i, (a, b) in enumerate(zip(outs, ref))
+           for t in [tallies_equal(a, b)] if t]
+    bad += [name for (name, a), (_, b) in zip(state_tensors(resumed.state),
+                                              state_tensors(whole.state))
+            if not (a.dtype == b.dtype and torch.equal(a, b))]
+    for sim in (cut, resumed, whole):
+        sim.event_writer.close()
+    return dict(completed=completed, differing=bad,
+                files=(cut.event_writer.path, whole.event_writer.path),
+                shard=checkpoint.shard_path(ck, mesh.rank))
+
+
+def phase9_rank(mesh, out_dir: str) -> dict:
+    """One rank's part of phase 9 (run in a process of its own)."""
+    device = mesh.device
+    torch.cuda.set_device(device)
+    main = rank_main_path(mesh, device)
+    outs, captured = main.pop("outs"), main.pop("captured")
+    res = dict(main=main, farm=rank_farm_and_repeat(mesh, device, outs),
+               resume=rank_resume(mesh, device, out_dir))
+    del outs
+    res["z"], res["z_ms_step"] = z_side(device, TWO_RANK_SEED, mesh)
+    if mesh.rank == 0:
+        photons, tables, seeds, k = captured
+        kw = dict(nz=k["nz"], nr=k["nr"], inline=k["inline_scatter"],
+                  pairs=k["pair_switch"], weight_floor=k["weight_floor"],
+                  max_tries=k["max_tries"])
+        res["kernel"] = check_kernel(device, "two-rank kernel (rank 0)",
+                                     photons, tables, seeds, k["max_iters"],
+                                     kw, "shared")
+    return res
+
+
+def z_test(one: list, two: list) -> dict:
+    """tools/pallas_e2e.py's test of each channel: the relative deviation
+    of the means against the relative 1-sigma error of their difference
+    (the noise floor); a channel passes with z < CAL_MULT or a deviation
+    below REL_FLOOR."""
+    out = {}
+    for q in Z_CHANNELS:
+        a = np.asarray([r[q] for r in two], np.float64)
+        b = np.asarray([r[q] for r in one], np.float64)
+        ref = max(abs(b.mean()), abs(a.mean()), 1e-300)
+        dev = abs(a.mean() - b.mean()) / ref
+        sig = math.sqrt(a.var(ddof=1) / len(a) + b.var(ddof=1) / len(b)) / ref
+        out[q] = dict(rel_dev=dev, noise_floor=sig,
+                      passed=bool(dev < CAL_MULT * sig or dev < REL_FLOOR))
+    return out
+
+
+def phase_ranks(device, card: str) -> Tuple[int, dict]:
+    """Phase 9: returns both ranks' flight kernel launches on the sharded
+    main path and rank 0's kernel check (check_kernel's dict)."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        res = distributed.run_ranks(
+            phase9_rank, RANKS, (os.path.join(tmp, "out"),), backend="gloo",
+            device=device, timeout_s=RANKS_TIMEOUT,
+            init_timeout_s=RANKS_INIT_TIMEOUT, rendezvous_dir=tmp)
+        ranks_s = time.perf_counter() - t0
+        for rank, r in enumerate(res):
+            rs = r["resume"]
+            if rs["completed"] is not False or rs["differing"]:
+                raise AssertionError(f"rank {rank} resume: completed "
+                                     f"{rs['completed']}, differing "
+                                     f"{rs['differing']}")
+            for path in rs["files"]:
+                if not os.path.basename(path).startswith(f"p{rank:03d}_"):
+                    raise AssertionError(f"rank {rank} event file {path}")
+            with open(rs["files"][0], "rb") as fa, \
+                    open(rs["files"][1], "rb") as fb:
+                ev = fa.read()
+                if ev != fb.read() or not ev:
+                    raise AssertionError(f"rank {rank}: resumed event file "
+                                         "differs or is empty")
+            if not os.path.exists(rs["shard"]):
+                raise AssertionError(f"rank {rank}: no checkpoint shard")
+    ev_bytes = len(ev)
+    launches = 0
+    for rank, r in enumerate(res):
+        m, f = r["main"], r["farm"]
+        lc = m["launches"]
+        if not (lc["inline"] > 0 and lc["strat"] == lc["pair"]
+                == lc["window"] == lc["global_tables"] == 0):
+            raise AssertionError(f"rank {rank} launches {lc}")
+        launches += lc["inline"]
+        if m["slots"] != N_SLOTS // RANKS or not m["te_finite"]:
+            raise AssertionError(f"rank {rank}: {m['slots']} slots, Te "
+                                 f"finite {m['te_finite']}")
+        for i, st in enumerate(m["steps"]):
+            if not abs(st["balance"] - 1.0) < AUDIT_TOL:
+                raise AssertionError(f"rank {rank} step {i}: audit "
+                                     f"{st['balance']}")
+            if st["tallies"] != res[0]["main"]["steps"][i]["tallies"]:
+                raise AssertionError(f"step {i}: tallies differ across "
+                                     "ranks")
+        if m["zones"] != res[0]["main"]["zones"]:
+            raise AssertionError("zone state differs across ranks")
+        if f["repeat"] or f["farm"]:
+            raise AssertionError(f"rank {rank}: not repeatable {f['repeat']}"
+                                 f"; zone_shard on vs off {f['farm']}")
+        log(f"two ranks, rank {rank} on {card}: {m['ms_step']:.3f} ms/step, "
+            f"{m['histories_s']:.6e} histories/s (both ranks' photons), "
+            f"collective {m['comm_ms_step']:.3f} ms/step in "
+            f"{m['comm_calls_step']:.1f} all_gathers of "
+            f"{m['comm_bytes_step']:.0f} bytes from this rank, "
+            f"{lc['inline']} B1 "
+            f"launches in {P9_WARM + P9_TIMED} steps, FP substeps/step "
+            f"{[st['substeps'] for st in m['steps']]} (the largest over the "
+            f"ranks; this rank's zones {m['local_substeps']}), rounds/step "
+            f"{[st['rounds'] for st in m['steps']]} (summed over the "
+            f"ranks), Te [{m['te'][0]:.3f}, "
+            f"{m['te'][1]:.3f}] keV; {m['summary']}")
+    log(f"two ranks: every step's audit within {AUDIT_TOL} on both ranks "
+        f"(balances {[round(st['balance'], 7) for st in res[0]['main']['steps']]}"
+        f"), tallies and zone state bitwise equal across the ranks, "
+        f"repeatable from the seed ({P9_FARM_STEPS} steps), zone_shard on "
+        f"equal to off ({P9_FARM_STEPS} steps, FP substeps "
+        f"{res[0]['farm']['substeps_on']} and "
+        f"{res[0]['farm']['substeps_off']}), {P9_CUT} + {P9_CUT} steps "
+        f"through a checkpoint (guard tripped on rank {RANKS - 1} only) "
+        f"equal to {2 * P9_CUT} (both pNNN_evb.dat, rank 1's {ev_bytes} "
+        f"bytes); the ranks took {ranks_s:.2f} s from spawn to join")
+    one, one_ms = z_side(device, ONE_RANK_SEED)
+    two = res[0]["z"]
+    if any(r["z"] != two for r in res):
+        raise AssertionError("z-test channels differ across ranks")
+    zt = z_test(one, two)
+    for q, v in zt.items():
+        log(f"1 vs 2 ranks {q}: rel_dev {v['rel_dev']:.6e} noise_floor "
+            f"{v['noise_floor']:.6e} z {v['rel_dev'] / max(v['noise_floor'], 1e-300):.3f} "
+            f"{'pass' if v['passed'] else 'FAIL'}")
+    log(f"1 vs 2 ranks ({Z_SEEDS} seeds x {Z_STEPS} steps a side): "
+        f"{one_ms:.3f} ms/step on 1 rank, {res[0]['z_ms_step']:.3f} "
+        f"ms/step on 2 ranks")
+    if not all(v["passed"] for v in zt.values()):
+        raise AssertionError(f"1 vs 2 ranks: {zt}")
+    return launches, res[0]["kernel"]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1834,13 +2157,16 @@ def main() -> int:
     launches_disk, launches_ec, k_ec = phase_decks(device, card)
     launches_prod, k_prod = phase_production(device, card)
     log(f"Coulomb kernel entry: {json.dumps(k_prod)}")
+    launches_ranks, k_ranks = phase_ranks(device, card)
+    log(f"two-rank kernel entry: {json.dumps(k_ranks)}")
 
     replaces = "compton2d_tpu/transport/flight_pallas2.py:347"
     log(json.dumps({"kernels": [
         {"name": "flight_kernel", "route": "cuda",
          "source": "compton2d_tpu_torch/csrc/flight.cu",
          "replaces": replaces,
-         "launches": launches_inline + launches_disk + launches_prod,
+         "launches": (launches_inline + launches_disk + launches_prod
+                      + launches_ranks),
          "library_ms": None, **k_inline},
         {"name": "flight_kernel_strat", "route": "cuda",
          "source": "compton2d_tpu_torch/csrc/flight.cu",

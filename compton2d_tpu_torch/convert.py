@@ -9,8 +9,9 @@ NamedTuples on a device, so both packages can run from the same state;
 the spectrum bank comes across inside the ``SourceStatic`` (the
 reference's quantile table, ``spec_inv``, has no counterpart),
 :func:`track_reflection` takes the reflection tables of a reference
-``TrackContext`` and :func:`coulomb_tables` its ``CoulombTables``. This
-module never imports jax.
+``TrackContext`` and :func:`coulomb_tables` its ``CoulombTables``;
+:func:`shard_photons` cuts a reference census into the ranks' shares of a
+photon mesh. This module never imports jax.
 """
 from __future__ import annotations
 
@@ -39,6 +40,22 @@ def flatten(obj, prefix: str = "") -> Dict[str, np.ndarray]:
         else:
             out[key] = np.asarray(leaf)
     return out
+
+
+def shard_photons(photons: Dict[str, np.ndarray], rank: int, world: int
+                  ) -> Dict[str, np.ndarray]:
+    """One rank's share of a global photon SoA (any dict of arrays whose
+    leading axis is the slot, such as the ``"photons.*"`` entries of a
+    flattened reference state) as the JAX package's mesh lays it out:
+    rank ``i`` of ``world`` owns slots ``[i n / world, (i + 1) n /
+    world)``, the port's rank ``i`` the same slots."""
+    n = {a.shape[0] for a in map(np.asarray, photons.values())}
+    if len(n) != 1 or next(iter(n)) % world:
+        raise ValueError(f"slot counts {sorted(n)} do not split over "
+                         f"{world} ranks")
+    m = next(iter(n)) // world
+    return {k: np.asarray(v)[rank * m:(rank + 1) * m]
+            for k, v in photons.items()}
 
 
 def _tensor(a: np.ndarray, device) -> torch.Tensor:

@@ -11,13 +11,23 @@ coronal flare's boost of the zones it sees, and the Coulomb drift under
 reference's active code, unless ``run.adaptive_dt`` applies the FP
 solve's dt ladder.
 
-The port covers the reference's options on one device: thermal and
-file-spectrum boundaries with their time windows, Compton reflection
-(cr_sent 1-4), synchrotron volume emission and shock injection, census
-roulette, stratified tail splitting, gamma-gamma pair physics, coronal
-flares, adaptive dt and the Coulomb FP drift. ``Simulation`` raises
-``NotImplementedError`` naming the option for device meshes and grid
-edges above 127 zones.
+The port covers the reference's options: thermal and file-spectrum
+boundaries with their time windows, Compton reflection (cr_sent 1-4),
+synchrotron volume emission and shock injection, census roulette,
+stratified tail splitting, gamma-gamma pair physics, coronal flares,
+adaptive dt and the Coulomb FP drift. ``Simulation`` raises
+``NotImplementedError`` for grid edges above 127 zones.
+
+Under a photon mesh (``parallel.mesh``: one process a rank) each rank
+owns ``n_slots / world`` slots, sources ``nst / world`` photons a step
+with weights over the global count and draws from its own random stream;
+the census energy, the pair field and the tallies are summed over the
+ranks in rank order, so every rank holds the same zone state and tallies.
+Under ``run.zone_shard`` the zone-batched phases (``volume_em``, the pair
+tensors, the FP solve) run on each rank's slice of the zones and are
+gathered (the reference's zone farm, update2d.f:190-214). Rank 0 alone
+writes the run outputs and the dumps; every rank writes its own event
+file and checkpoint shard.
 
 Run-level outputs (``attach_outputs``): the escaping spectrum, light
 curves and temperature profile accumulate on the host from each step's
@@ -40,13 +50,15 @@ import torch
 from compton2d_tpu_torch import constants as cn
 from compton2d_tpu_torch.config import SimConfig, TimeWindow, ZoneInit
 from compton2d_tpu_torch.units import Scales, make_scales
-from compton2d_tpu_torch.fp.update import fp_step, photon_fill
+from compton2d_tpu_torch.fp.update import FPResult, fp_step, photon_fill
 from compton2d_tpu_torch.grid import Grid, initial_dt, make_grid
 from compton2d_tpu_torch.io import outputs as outs
 from compton2d_tpu_torch.io.checkpoint import WalltimeGuard, save_checkpoint
 from compton2d_tpu_torch.io.events import EventFileWriter
 from compton2d_tpu_torch.io.legacy import external_spectrum
 from compton2d_tpu_torch.io.outputs import OutputAccumulator
+from compton2d_tpu_torch.parallel import mesh as pmesh
+from compton2d_tpu_torch.parallel.distributed import process_event_path
 from compton2d_tpu_torch.physics import emissivity_extras as ex
 from compton2d_tpu_torch.physics.compton import SIGMA_T, zone_sigma_table
 from compton2d_tpu_torch.physics.coulomb import (
@@ -238,23 +250,28 @@ def _estimate_energy_scale(cfg: SimConfig, zone_init: ZoneInit) -> float:
     return max(bb, flux * area * dt0, sy, inj, 1.0) / 1e6
 
 
-def check_slice(cfg: SimConfig, mesh=None) -> None:
-    """Raise NotImplementedError for options the port does not run yet."""
-    if mesh is not None:
-        raise NotImplementedError("compton2d_tpu_torch: mesh (multi-device) "
-                                  "is not ported yet")
+def check_slice(cfg: SimConfig, mesh: Optional[pmesh.PhotonMesh] = None
+                ) -> None:
+    """Raise NotImplementedError for options the port does not run, and
+    ValueError for slots that do not split into whole tiles per rank."""
     flight.window_z(cfg.grid.nz, cfg.grid.nr)   # raises above 127 zones
-    if cfg.run.n_slots % flight.TILE:
+    world = 1 if mesh is None else mesh.world
+    if cfg.run.n_slots % (world * flight.TILE):
         raise ValueError(f"n_slots={cfg.run.n_slots} must be a multiple of "
-                         f"{flight.TILE}")
+                         f"{world} ranks x {flight.TILE}")
 
 
 class Simulation:
     """Owns the configuration, tables, state and random stream.
 
-    ``device`` is where every tensor lives; the random stream is a
-    ``torch.Generator`` on that device seeded from ``cfg.run.seed``
-    (``state.key``). Host clock mirror: time/dt/ncycle advance
+    ``device`` is where every tensor lives (under a photon ``mesh`` the
+    mesh's device, of which ``device`` must name the type); the random
+    stream is a ``torch.Generator`` on that device
+    seeded from ``cfg.run.seed`` (``state.key``), and under a mesh from
+    ``pmesh.rank_seed(seed, rank)``, so that a mesh of one rank runs as
+    ``mesh=None``. Under a mesh ``state.photons`` holds the rank's
+    ``n_slots / world`` slots and everything else is the same on every
+    rank. Host clock mirror: time/dt/ncycle advance
     deterministically, so the driver tracks them on the host instead of
     reading the device scalars each step (under ``adaptive_dt`` it reads
     the new dt back after each step); assigning ``sim.state`` marks the
@@ -279,10 +296,17 @@ class Simulation:
             self._clock_dirty = False
 
     def __init__(self, cfg: SimConfig, zone_init: Optional[ZoneInit] = None,
-                 *, device="cuda", mesh=None):
+                 *, device="cuda", mesh: Optional[pmesh.PhotonMesh] = None):
         check_slice(cfg, mesh)
         self.cfg = cfg
+        self.mesh = mesh
         self.device = torch.device(device)
+        if mesh is not None:
+            if self.device.type != mesh.device.type or self.device.index \
+                    not in (None, mesh.device.index):
+                raise ValueError(f"device {device} is not the mesh's "
+                                 f"{mesh.device}")
+            self.device = mesh.device
         dev = self.device
         if zone_init is None:
             zone_init = ZoneInit.uniform(cfg.grid)
@@ -298,7 +322,9 @@ class Simulation:
                          length_scale=self.scales.L)
         g = cfg.grid
         gen = torch.Generator(device=dev)
-        gen.manual_seed(int(cfg.run.seed))
+        gen.manual_seed(int(cfg.run.seed) if mesh is None
+                        else pmesh.rank_seed(int(cfg.run.seed), mesh.rank))
+        world = 1 if mesh is None else mesh.world
 
         def zf(*shape):
             return torch.zeros(shape, dtype=torch.float32, device=dev)
@@ -308,7 +334,7 @@ class Simulation:
 
         self.state = SimState(
             zones=zones,
-            photons=PhotonArray.empty(cfg.run.n_slots, dev),
+            photons=PhotonArray.empty(cfg.run.n_slots // world, dev),
             time=scal(0.0), dt=scal(dt0), dt_prev=scal(dt0),
             ncycle=scal(0, torch.int32), key=gen,
             ed_abs=zf(g.nr), ed_ref=zf(g.nr),
@@ -326,11 +352,18 @@ class Simulation:
         self.src_static = self.window_sources.select(0.0, dt0, 0)
         self.last_outputs: Optional[StepOutputs] = None
         self.outputs: Optional[OutputAccumulator] = None
+        self.event_writer: Optional[EventFileWriter] = None
+
+    @property
+    def writes_outputs(self) -> bool:
+        """Whether this process writes the run outputs (rank 0 of a mesh)."""
+        return self.mesh is None or self.mesh.rank == 0
 
     def with_config(self, cfg: SimConfig) -> "Simulation":
         """A fresh Simulation with a modified config and THIS sim's zone
-        initialization and device."""
-        return Simulation(cfg, self.zone_init, device=self.device)
+        initialization, device and mesh."""
+        return Simulation(cfg, self.zone_init, device=self.device,
+                          mesh=self.mesh)
 
     def attach_outputs(self, out_dir: str, event_file: str = "evb.dat",
                        resume: bool = False):
@@ -339,14 +372,21 @@ class Simulation:
         ``resume`` (a run continued from a checkpoint) the event file is
         appended to; otherwise it starts empty. The run-level accumulator
         starts empty either way: a checkpoint does not hold it, as the
-        reference's does not."""
+        reference's does not. Under a mesh every rank writes its own
+        records to ``pNNN_<event_file>`` (``process_event_path``) and rank 0
+        alone accumulates the run outputs."""
         self.out_dir = out_dir
-        self.outputs = OutputAccumulator(
-            self.tables.hu.cpu().numpy(), self.tables.mu_edges.cpu().numpy(),
-            self.cfg.grid.lc_bands, self.scales.E,
-        )
-        self.event_writer = EventFileWriter(
-            os.path.join(out_dir, event_file), self.scales.E, append=resume)
+        if self.writes_outputs:
+            self.outputs = OutputAccumulator(
+                self.tables.hu.cpu().numpy(),
+                self.tables.mu_edges.cpu().numpy(),
+                self.cfg.grid.lc_bands, self.scales.E,
+            )
+        path = os.path.join(out_dir, event_file)
+        if self.mesh is not None:
+            path = process_event_path(path, self.mesh.rank)
+        self.event_writer = EventFileWriter(path, self.scales.E,
+                                            append=resume)
         return self
 
     def step(self) -> StepOutputs:
@@ -356,7 +396,7 @@ class Simulation:
         self._state, out = _step_impl(
             self._state, self.src_static, self.grid, self.tables, self.cfg,
             self.scales, self._host_ncycle, self.pair_tables,
-            self.coulomb_tables,
+            self.coulomb_tables, self.mesh,
         )
         self._host_time += self._host_dt
         self._host_dt_prev = self._host_dt
@@ -365,15 +405,16 @@ class Simulation:
             # the FP ladder picked the next dt on the device: read it back
             self._host_dt = float(self._state.dt)
         self.last_outputs = out
-        if self.outputs is not None:
+        if self.event_writer is not None:
             self._check_event_overflow(out)
+            self.event_writer.write(out.events)
+        if self.outputs is not None:
             t = out.tallies
             self.outputs.add_step(
                 t._replace(fout=t.fout.cpu(), edout=t.edout.cpu()),
                 self._host_time - self._host_dt_prev, self._host_dt_prev,
                 tea=self.state.zones.tea.cpu().numpy(),
             )
-            self.event_writer.write(out.events)
         return out
 
     def run(self, n_steps: int):
@@ -389,7 +430,13 @@ class Simulation:
         the attached outputs. Returns False, without writing them, when
         the walltime guard (xec2d.f:50-55) stops the run first, after
         saving the state to ``checkpoint_path`` (when given) with its
-        ``ncycle`` and ``time`` (``io.checkpoint.save_checkpoint``)."""
+        ``ncycle`` and ``time`` (``io.checkpoint.save_checkpoint``).
+
+        Under a mesh the ranks take the guard's decision together (the
+        largest of their flags, each step): every rank checkpoints and
+        returns False on the same step, so no rank waits for ever in a
+        collective that the others left (the JAX package decides per
+        process)."""
         guard = WalltimeGuard(
             walltime_budget_s or self.cfg.run.walltime_budget_s,
             self.cfg.run.checkpoint_frac,
@@ -398,12 +445,16 @@ class Simulation:
             self._sync_clock()
             if self._host_time - self._host_dt_prev >= self.cfg.run.t_stop:
                 break
-            if guard.should_checkpoint():
+            stop = guard.should_checkpoint()
+            if self.mesh is not None:
+                stop = bool(pmesh.all_max(self.mesh, torch.tensor(
+                    int(stop), dtype=torch.int32, device=self.device)))
+            if stop:
                 if checkpoint_path:
                     save_checkpoint(
                         checkpoint_path, self.state,
                         {"ncycle": int(self.state.ncycle),
-                         "time": float(self.state.time)})
+                         "time": float(self.state.time)}, mesh=self.mesh)
                 return False
             self.step()
             if verbose:
@@ -465,6 +516,8 @@ class Simulation:
         return getattr(self, "n_events_dropped", 0)
 
     def summary(self) -> str:
+        """One line on the last step (under a mesh ``census`` counts this
+        rank's slots)."""
         o = self.last_outputs
         s = self.state
         esc = float(torch.sum(o.tallies.fout)) * self.scales.E
@@ -482,6 +535,8 @@ class Simulation:
             extras += f" fp_incomplete={int(o.fp_incomplete)}"
         if int(o.tallies.n_sct_overflow):
             extras += f" sct_overflow={int(o.tallies.n_sct_overflow)}"
+        if self.mesh is not None:
+            extras += f" rank={self.mesh.rank}/{self.mesh.world}"
         return (
             f"cycle={int(s.ncycle)} t={float(s.time):.4e}s "
             f"dt={float(s.dt):.3e}s census={alive} "
@@ -539,11 +594,14 @@ class PairFields(NamedTuple):
 
 def pair_fields(photons: PhotonArray, zones: ZoneState, tables: Tables,
                 pair_tables: PairTables, grid: Grid, scales: Scales, nz: int,
-                nr: int) -> PairFields:
+                nr: int, mesh: Optional[pmesh.PhotonMesh] = None,
+                zone_shard: bool = False) -> PairFields:
     """The pair physics of the census field (imcgen2d.f:354-396): the
     census photons' number density on the e_gg grid, its smoothed fit,
     the gamma-gamma opacity, the pair production and the annihilation
-    sinks."""
+    sinks. Under a ``mesh`` the census field is summed over the ranks'
+    photons, and with ``zone_shard`` the per-zone tensors are computed on
+    the rank's zone slice and gathered."""
     f32 = torch.float32
     nzr = nz * nr
     ngg = tables.e_gg.shape[0]
@@ -555,27 +613,30 @@ def pair_fields(photons: PhotonArray, zones: ZoneState, tables: Tables,
     zid = (torch.clamp(photons.jz, 0, nz - 1) * nr
            + torch.clamp(photons.kr, 0, nr - 1))
     nph_scaled = hist2d(cnts, zid, nzr, gbin, ngg)
+    if mesh is not None:
+        nph_scaled = pmesh.all_gather_sum(mesh, nph_scaled)
     # bin widths; the last bin's "width" is 1 (the reference's choice)
     de_gg = torch.cat([torch.diff(egg32), egg32.new_ones(1)])
     nph_phys = (nph_scaled * float(np.float32(scales.nfield_to_dgic))
                 / grid.vol.reshape(-1, 1).to(f32) / de_gg[None, :])
-    nph_sm = pairs.nph_smooth(nph_phys, egg32,
-                              zones.tea.reshape(-1).to(f32))
+    per_zone = (nph_phys, zones.tea.reshape(-1).to(f32),
+                zones.f_nt.reshape(nzr, -1).to(f32),
+                zones.n_pos.reshape(nzr, -1).to(f32),
+                zones.n_e.reshape(-1).to(f32))
+    if zone_shard:
+        per_zone = [pmesh.zone_slice_flat(mesh, x) for x in per_zone]
+    nph_z, tea_z, f_z, npos_z, ne_z = per_zone
+    nph_sm = pairs.nph_smooth(nph_z, egg32, tea_z)
     k_gg = torch.matmul(nph_sm, pair_tables.kgg_mat.T)
     dn_pp = pairs.dn_pp_from_field(nph_sm, pair_tables.pp_tensor)
-    dne_pa, dnp_pa = pairs.pa_rates(
-        zones.f_nt.reshape(nzr, -1).to(f32),
-        zones.n_pos.reshape(nzr, -1).to(f32),
-        zones.n_e.reshape(-1).to(f32), pair_tables.vsigma,
-        tables.gnt.to(f32))
-    return PairFields(
-        nph_raw=nph_phys.reshape(nz, nr, ngg),
-        nph_fit=nph_sm.reshape(nz, nr, ngg),
-        k_gg=k_gg.reshape(nz, nr, ngg),
-        dn_pp=dn_pp.reshape(nz, nr, -1),
-        dne_pa=dne_pa.reshape(nz, nr, -1),
-        dnp_pa=dnp_pa.reshape(nz, nr, -1),
-    )
+    dne_pa, dnp_pa = pairs.pa_rates(f_z, npos_z, ne_z, pair_tables.vsigma,
+                                    tables.gnt.to(f32))
+    rates = (nph_sm, k_gg, dn_pp, dne_pa, dnp_pa)
+    if zone_shard:
+        rates = pmesh.zone_gather(mesh, rates, nz, nr)[0]
+    else:
+        rates = tuple(x.reshape(nz, nr, -1) for x in rates)
+    return PairFields(nph_phys.reshape(nz, nr, ngg), *rates)
 
 
 def flare_zones(zones: ZoneState, grid: Grid, fl, time, scales: Scales
@@ -610,12 +671,53 @@ def adapt_dt(dt_new, grid: Grid, scales: Scales):
     return torch.maximum(dt_new, dt_min.to(dt_new.dtype))
 
 
+def fp_zone_farm(mesh: pmesh.PhotonMesh, args: tuple, kw: dict) -> FPResult:
+    """``fp_step(*args, **kw)`` as the reference's FP zone farm
+    (update2d.f:190-214): this rank solves its zone slice, a (Zs, 1) grid
+    with its pad zones inert (no protons or leptons, ``zone_valid`` False),
+    and one exchange gathers the zones, takes the largest dT_max and
+    substep count and the smallest dt_new (the dt ladder is monotone in
+    dT_max), and sums e_el_old, e_el_new and the incomplete zones. Each
+    zone's solve is the one it gets on the whole grid, so the zones equal
+    those of the replicated solve."""
+    zones, n_field, tables, vol, z_max, dz, dt, time, eloss_sy = args[:9]
+    nz, nr = zones.tea.shape
+    f32 = torch.float32
+
+    def part(x):
+        return pmesh.zone_slice(mesh, x)
+
+    valid = pmesh.zone_valid(mesh, nz * nr, vol.device)
+    zs = ZoneState(*[part(x) for x in zones])
+    zs = zs._replace(n_e=torch.where(valid, zs.n_e, 0.0),
+                     tna=torch.where(valid, zs.tna, 0.0))
+    j_row = torch.arange(nz, dtype=f32, device=vol.device)[:, None].expand(
+        nz, nr)
+    kw = {k: (part(v) if k in ("eloss_br", "dn_pp", "dne_pa", "dnp_pa")
+              and v is not None else v) for k, v in kw.items()}
+    fpr = fp_step(zs, part(n_field), tables, part(vol), z_max, dz, dt, time,
+                  part(eloss_sy), *args[9:], j_row=part(j_row),
+                  slab_vol=torch.sum(vol.reshape(-1).to(f32)) / nz,
+                  zone_valid=valid, **kw)
+    zones_new, dT_max, dt_new, e_old, e_new, sub, inc = pmesh.zone_gather(
+        mesh, fpr.zones, nz, nr, extra=[
+            (fpr.dT_max, pmesh.MAX), (fpr.dt_new, pmesh.MIN),
+            (fpr.e_el_old, pmesh.SUM), (fpr.e_el_new, pmesh.SUM),
+            (fpr.substeps, pmesh.MAX), (fpr.incomplete, pmesh.SUM)])
+    return FPResult(zones=zones_new, dt_new=dt_new, dT_max=dT_max,
+                    e_el_old=e_old, e_el_new=e_new, substeps=sub,
+                    incomplete=inc)
+
+
 def _step_impl(state: SimState, src: sourcing.SourceStatic, grid: Grid,
                tables: Tables, cfg: SimConfig, scales: Scales, ncycle: int,
                pair_tables: Optional[PairTables] = None,
                coulomb_tables: Optional[CoulombTables] = None,
+               mesh: Optional[pmesh.PhotonMesh] = None,
                ) -> Tuple[SimState, StepOutputs]:
-    """One step. ``ncycle`` is the host mirror of ``state.ncycle``."""
+    """One step. ``ncycle`` is the host mirror of ``state.ncycle``. Under a
+    ``mesh``, ``state.photons`` are this rank's slots (the order of the
+    JAX package's sharded step, compton2d_tpu/driver.py:736-1192)."""
     g, phys, run = cfg.grid, cfg.physics, cfg.run
     nz, nr = g.nz, g.nr
     nzr = nz * nr
@@ -623,7 +725,9 @@ def _step_impl(state: SimState, src: sourcing.SourceStatic, grid: Grid,
     gen = state.key
     dev = state.dt.device
     f32, i32 = torch.float32, torch.int32
-    n = run.n_slots
+    n = state.photons.n_slots
+    world = 1 if mesh is None else mesh.world
+    zone_shard = world > 1 and run.zone_shard and nzr >= world
 
     # ---- 0. census replay: reset flight clocks (imcfield2d.f:117) -------
     photons = state.photons._replace(dcen=torch.where(
@@ -635,6 +739,8 @@ def _step_impl(state: SimState, src: sourcing.SourceStatic, grid: Grid,
     ecens_prev = segment_sum(
         torch.where(photons.alive, photons.w, 0.0), zid, nzr
     ).reshape(nz, nr)
+    if mesh is not None:
+        ecens_prev = pmesh.all_gather_sum(mesh, ecens_prev)
 
     # ---- 1. zone pass (imcgen2d): B, emissivities, budget ---------------
     B = equipartition_b(zones.ep_switch, zones.tea, zones.tna, zones.n_e,
@@ -642,15 +748,22 @@ def _step_impl(state: SimState, src: sourcing.SourceStatic, grid: Grid,
                         tables.gamma_bar.forward)
     zones = zones._replace(B_field=B)
     l_min = torch.minimum(grid.dz, grid.dr) * torch.ones_like(grid.vol)
-    ve = volume_em(tables.e_ph, tables.gnt, zones.f_nt, zones.tea,
-                   zones.n_e, B, zones.amxwl, grid.vol, grid.zone_surf,
-                   l_min, state.dt, scales, f_pair=zones.f_pair)
+    em_zones = (zones.f_nt, zones.tea, zones.n_e, B, zones.amxwl, grid.vol,
+                grid.zone_surf, l_min, zones.f_pair)
+    if zone_shard:
+        em_zones = [pmesh.zone_slice(mesh, x) for x in em_zones]
+    ve = volume_em(tables.e_ph, tables.gnt, *em_zones[:-1], state.dt,
+                   scales, f_pair=em_zones[-1])
+    if zone_shard:
+        ve = pmesh.zone_gather(mesh, ve, nz, nr)[0]
+    # every rank sources its share of nst, weighted over the global count
     nst_eff = cfg.source.nst * max(cfg.source.split, 1)
     budget = sourcing.compute_budget(
         src, ve.eloss_tot, ecens_prev, state.ed_abs,
         grid.area_lower, grid.area_upper, grid.area_inner, grid.area_outer,
-        state.dt, state.dt_prev, max(nst_eff, 1), cfg.source.bias_cap,
-        scales.sigma_sb, dh_sentinel=bool(phys.dh_sentinel),
+        state.dt, state.dt_prev, max(nst_eff // world, 1),
+        cfg.source.bias_cap, scales.sigma_sb,
+        dh_sentinel=bool(phys.dh_sentinel), replicas=world,
     )
 
     # census population control (weight-window roulette)
@@ -675,7 +788,7 @@ def _step_impl(state: SimState, src: sourcing.SourceStatic, grid: Grid,
     # ---- 1b. pair physics from the census field (imcgen2d.f:354-396) ----
     if phys.pair_switch:
         pf = pair_fields(photons, zones, tables, pair_tables, grid, scales,
-                         nz, nr)
+                         nz, nr, mesh, zone_shard)
         state = state._replace(k_gg=pf.k_gg, dn_pp=pf.dn_pp,
                                dne_pa=pf.dne_pa, dnp_pa=pf.dnp_pa)
         nph_raw, nph_fit = pf.nph_raw, pf.nph_fit
@@ -763,19 +876,24 @@ def _step_impl(state: SimState, src: sourcing.SourceStatic, grid: Grid,
     photons, tallies, events = transport_step(
         photons, tallies, events, gen, ctx, st)
     tallies = census_tally(photons, tallies, ctx, st)
+    if mesh is not None:
+        # the reference's MPI_REDUCE trees (xec2d.f:325-399), in rank order
+        tallies, n_tracked = pmesh.all_gather_sum(mesh, (tallies, n_tracked))
 
     # ---- 4. FP electron update (update2d) -------------------------------
     zero = torch.zeros((), dtype=f32, device=dev)
     zero_i = torch.zeros((), dtype=i32, device=dev)
     dt_next = state.dt
     if not phys.t_const:
-        fpr = fp_step(
+        fp_args = (
             flare_zones(zones, grid, phys.flare, state.time, scales),
             tallies.n_field, tables, grid.vol, float(g.z_max), grid.dz,
-            state.dt, state.time, ve.eloss_sy, phys, scales,
-            eloss_br=ve.eloss_br, dn_pp=state.dn_pp, dne_pa=state.dne_pa,
-            dnp_pa=state.dnp_pa, coulomb=coulomb_tables,
-        )
+            state.dt, state.time, ve.eloss_sy, phys, scales)
+        fp_kw = dict(eloss_br=ve.eloss_br, dn_pp=state.dn_pp,
+                     dne_pa=state.dne_pa, dnp_pa=state.dnp_pa,
+                     coulomb=coulomb_tables)
+        fpr = (fp_zone_farm(mesh, fp_args, fp_kw) if zone_shard
+               else fp_step(*fp_args, **fp_kw))
         # only apply after the field is established (ncycle > 0); the
         # flare's tna / turb_lev are the FP solve's alone (update2d.f:558)
         apply = ncycle > 0
@@ -824,7 +942,10 @@ def write_diagnostics(sim: Simulation, out_dir: str, extras: bool = False):
     volume2d.f:347-353, imcgen2d.f:328-331): eloss_cy.dat and j_cy.dat
     (thermal cyclotron) and under pair_switch j_pa.dat (the
     pair-annihilation spectrum). Every file has the reference's text for
-    the same arrays."""
+    the same arrays. Under a mesh rank 0 alone writes them (the zone state
+    and the tallies are the same on every rank)."""
+    if not sim.writes_outputs:
+        return
     os.makedirs(out_dir, exist_ok=True)
     t, s = sim.tables, sim.state
     if extras:

@@ -33,11 +33,13 @@ def small_corona(
     gmax: float = 1.0e5,
     p_nth: float = 2.5,
     device="cuda",
+    mesh=None,
     **phys_kw,
 ) -> Simulation:
     """A small 2-D accreting corona: a hot thermal electron cloud above a
     cool blackbody disk (the lower boundary). Same configuration as the
-    reference's ``small_corona``, built on ``device``."""
+    reference's ``small_corona``, built on ``device`` (on a photon
+    ``mesh``, this rank's share of it)."""
     grid = GridConfig(
         nz=nz, nr=nr, z_max=1.0e15, r_max=1.0e15,
         num_nt=num_nt, n_vol=n_vol, nphfield=nphfield,
@@ -65,7 +67,7 @@ def small_corona(
         grid, tea=tea, tna=tea, n_e=n_e, B_field=10.0, amxwl=amxwl,
         gmin=gmin, gmax=gmax, p_nth=p_nth,
     )
-    return Simulation(cfg, zi, device=device)
+    return Simulation(cfg, zi, device=device, mesh=mesh)
 
 
 def blazar_jet(

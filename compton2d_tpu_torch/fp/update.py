@@ -1,7 +1,7 @@
 """Per-step electron update (counterpart of ``compton2d_tpu.fp.update``):
 the Fokker-Planck solve of update2d.f vectorized over all zones.
 
-IC drift from the tallied radiation field (one float32 matmul against
+IC drift from the tallied radiation field (a float32 contraction with
 F_IC), synchrotron drift with the Razin-like suppression, hard-sphere
 stochastic acceleration, injection and escape; under pair_switch the pair
 sources and annihilation sinks on the electrons and the positrons, whose
@@ -29,8 +29,22 @@ from compton2d_tpu_torch.config import PhysicsConfig
 from compton2d_tpu_torch.units import Scales
 from compton2d_tpu_torch.fp.chang_cooper import chang_cooper_coeffs, pcr_solve
 from compton2d_tpu_torch.physics import electron_dist as ed
+from compton2d_tpu_torch.physics.emissivity import ZONE_CHUNK_ELEMS
 from compton2d_tpu_torch.state import ZoneState
 from compton2d_tpu_torch.tables import Tables
+
+
+def zone_contract(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(Z, K) rows of ``a`` against the (N, K) rows of ``b``: the (Z, N)
+    sums over K, each added in an order that does not depend on Z (a
+    product and a sum over the last axis; a BLAS matmul picks its kernel
+    by the shape, so a zone's result would change with the number of
+    zones beside it, and the zone farm's slices would differ from the
+    whole grid). In chunks of zones whose (zones, N, K) product stays
+    within ZONE_CHUNK_ELEMS elements, as ``volume_em``'s."""
+    chunk = max(1, ZONE_CHUNK_ELEMS // (b.shape[0] * b.shape[1]))
+    return torch.cat([torch.sum(a[z0:z0 + chunk, None, :] * b[None], dim=-1)
+                      for z0 in range(0, a.shape[0], chunk)])
 
 
 class FPResult(NamedTuple):
@@ -47,6 +61,7 @@ def fp_step(
     zones: ZoneState, n_field, tables: Tables, vol, z_max: float, dz, dt,
     time, eloss_sy, phys: PhysicsConfig, scales: Scales,
     eloss_br=None, dn_pp=None, dne_pa=None, dnp_pa=None, coulomb=None,
+    j_row=None, slab_vol=None, zone_valid=None,
 ) -> FPResult:
     """All energies scaled by scales.E, volumes by scales.L^3. Under
     pair_switch, ``dn_pp`` (pair production), ``dne_pa`` and ``dnp_pa``
@@ -57,7 +72,16 @@ def fp_step(
     else from ``_coulomb_drift``. The solve runs in the precision of
     ``zones.f_nt``: float32 as the reference on every path; float64 zones
     (with the tables' gamma_bar in float64) are a precision check of the
-    float32 solve."""
+    float32 solve.
+
+    On a zone farm's slice (``parallel.mesh.zone_slice``: the rank's zones
+    as a (Zs, 1) grid) three arguments keep each zone's solve what it is
+    on the whole grid: ``j_row`` (nz, nr), the z-row of each zone (the
+    shock front's timing; default its row here), ``slab_vol``, the volume
+    of one z-slab of the whole grid (default sum(vol) / nz), and
+    ``zone_valid`` (nz, nr) bool, False on pad zones, which gates their
+    injection and keeps them out of the e_el sums and the incomplete
+    count."""
     nz, nr, num_nt = zones.f_nt.shape
     Z = nz * nr
     f32, i32 = zones.f_nt.dtype, torch.int32
@@ -90,14 +114,17 @@ def fp_step(
     tna = zones.tna.reshape(Z).to(f32)
     tlev = zones.turb_lev.reshape(Z).to(f32)
 
+    valid = (torch.ones(Z, dtype=torch.bool, device=dev)
+             if zone_valid is None else zone_valid.reshape(Z))
+
     def e_tot(f, nloc):
-        return torch.sum(f * gamma * wdg, dim=-1) * (
-            nloc * (k_mec2_vol * volume))
+        return torch.where(valid, torch.sum(f * gamma * wdg, dim=-1) * (
+            nloc * (k_mec2_vol * volume)), 0.0)
 
     e_el_old = torch.sum(e_tot(f_old, ne))
 
     nf = n_field.reshape(Z, -1).to(f32)
-    dg_ic = -torch.matmul(nf, tables.f_ic.to(f32).T) * (k_dgic / volume[:, None])
+    dg_ic = -zone_contract(nf, tables.f_ic.to(f32)) * (k_dgic / volume[:, None])
     f_sy = 1.058e-15 * B * B / cn.MEC2_ERG
     dg_A = gamma[None, :] / t_acc
     disp_A = gamma[None, :] * gamma[None, :] / (2.0 * t_acc)
@@ -111,7 +138,8 @@ def fp_step(
     th_p = tna / 9.382e5
     lnL = phys.lnL
     inj = phys.injection
-    jrow_flat = torch.arange(nz, dtype=f32, device=dev).repeat_interleave(nr)
+    jrow_flat = (torch.arange(nz, dtype=f32, device=dev).repeat_interleave(nr)
+                 if j_row is None else j_row.reshape(Z).to(f32))
     use_pairs = bool(phys.pair_switch)
     if use_pairs:
         if dn_pp is None or dne_pa is None or dnp_pa is None:
@@ -128,7 +156,8 @@ def fp_step(
         dne_pa_f = dne_pa.reshape(Z, num_nt).to(f32) * interior
         dnp_pa_f = dnp_pa.reshape(Z, num_nt).to(f32) * interior
     npos = zones.n_pos.reshape(Z, num_nt).to(f32)
-    slab_vol = torch.sum(volume) / nz
+    if slab_vol is None:
+        slab_vol = torch.sum(volume) / nz
     eloss_sy_z = eloss_sy.reshape(Z).to(f32)
 
     def cool_heat_rates(f, th_e, te):
@@ -201,7 +230,7 @@ def fp_step(
         f_inj = f
         if inj.pickup:
             psum = torch.clamp_min(torch.sum(gauss_prof * wdg), 1e-30)
-            inj_rho = inj.pickup_rate * d_t
+            inj_rho = torch.where(valid, inj.pickup_rate * d_t, 0.0)
             f_inj = f_inj + (inj_rho[:, None] * gauss_prof[None, :] / psum
                              / torch.clamp_min(ne, 1e-30)[:, None])
             n_inject = n_inject + inj_rho
@@ -236,7 +265,8 @@ def fp_step(
             inj_rate = lum_fold / torch.clamp_min(
                 inj_e_mean * slab_vol, 1e-30)
             ok_inj = inj_sum[:, 0] > 1e-20
-            inj_rho = torch.where(active & ok_inj, inj_rate * d_t, 0.0)
+            inj_rho = torch.where(active & ok_inj & valid, inj_rate * d_t,
+                                  0.0)
             f_inj = f_inj + (inj_rho[:, None] * prof / inj_sum
                              / torch.clamp_min(ne, 1e-30)[:, None])
             n_inject = n_inject + inj_rho
@@ -301,7 +331,7 @@ def fp_step(
         done = t_fp >= dt32
         it += 1
 
-    incomplete = torch.sum((t_fp < dt32).to(i32), dtype=i32)
+    incomplete = torch.sum((valid & (t_fp < dt32)).to(i32), dtype=i32)
     te_new = torch.clamp(th_e * cn.EMASS_KEV, phys.temp_min, phys.temp_max)
     te_new = torch.where(tna > 1.0, te_new, tea0)
     dT = torch.abs(te_new - tea0) / torch.clamp_min(te_new, 1e-30)
@@ -345,8 +375,8 @@ def fp_step(
                        torch.exp(-torch.clamp_max(y_c, 90.0)) * wdg, 0.0)
     lg = torch.log(gamma)
     gp = torch.exp(-p_cand[:, None] * lg[None, :])
-    denom_p = torch.matmul(base, gp.T) + 1e-30
-    numer_p = torch.matmul(base * gamma[None, :], gp.T)
+    denom_p = zone_contract(base, gp) + 1e-30
+    numer_p = zone_contract(base * gamma[None, :], gp)
     miss = torch.abs(numer_p / denom_p - sum_e_mean[:, None])
     p_eff = p_cand[torch.argmin(miss, dim=-1)]
     pure_th = amxwl_eff > 0.9999

@@ -9,7 +9,9 @@ The reference writes every escaping photon to per-rank text event files
 
 Those files are both the science output and the input of the C
 post-processors (``postprocessing/plcm.c:384``). The device accumulates a
-fixed-capacity EventBuffer per step; the host flushes it.
+fixed-capacity EventBuffer per step; the host flushes it. Under a photon
+mesh each rank flushes its own records to its own file
+(``parallel.distributed.process_event_path``).
 
 Two sinks:
 - :class:`EventFileWriter` — reference-format text file, written with

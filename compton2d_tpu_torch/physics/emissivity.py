@@ -23,7 +23,8 @@ _SIGMA_T = 6.6524616e-25
 _E_CHARGE = 4.803e-10
 _E_MASS = 9.109e-28
 _NU_FOLD = 1.0e21
-# elements of one (zones, n_vol, num_nt) intermediate of volume_em
+# elements of one (zones, n_vol, num_nt) intermediate of volume_em (and of
+# fp.update.zone_contract's (zones, N, K) product)
 ZONE_CHUNK_ELEMS = 1 << 25
 
 
@@ -233,8 +234,11 @@ def volume_em(e_ph, gnt, f_nt, tea, n_e, B, amxwl, vol, zsurf, l_min, dt,
             * (nu_b[zs] / _NU_FOLD)[:, :, None]
         )
         es = face[zs, :, None] * sync_kernel_f32(t)
-        j_parts.append(torch.einsum("zeg,zg->ze", es, fw[zs]))
-        k_parts.append(torch.einsum("zeg,zg->ze", es, sg[zs]))
+        # products summed over gamma: a zone's sums do not depend on the
+        # number of zones beside it (a batched matmul picks its kernel by
+        # the shape), so the zone farm's slices equal the whole grid
+        j_parts.append(torch.sum(es * fw[zs, None, :], dim=-1))
+        k_parts.append(torch.sum(es * sg[zs, None, :], dim=-1))
     j_sy = torch.cat(j_parts) * nez / (4.0 * np.pi)
     kap_sy = torch.cat(k_parts) * nez * k_kap_sy / (nu21 * nu21)
     kap_sy = torch.abs(kap_sy)

@@ -100,10 +100,14 @@ def compute_budget(
     src: SourceStatic, fas, ecens, ed_abs,
     area_lower, area_upper, area_inner, area_outer,
     dt, dt_prev, nst: int, bias_cap: float, sigma_sb_scaled: float,
-    dh_sentinel: bool = False,
+    dh_sentinel: bool = False, replicas: int = 1,
 ) -> SourceBudget:
     """Energy inputs and photon counts per source category
-    (imcgen2d.f:125-193, 430-517)."""
+    (imcgen2d.f:125-193, 430-517). Under a photon mesh every rank runs
+    this budget with its own ``nst`` (the global one over the ranks) and
+    ``replicas`` = the number of ranks: the weights divide each
+    category's energy by the global photon count, so the ranks' emission
+    sums to the budget."""
     nz = area_inner.shape[0]
     f32 = torch.float32
     dt32 = torch.as_tensor(dt, dtype=f32, device=fas.device)
@@ -161,7 +165,7 @@ def compute_budget(
     energies = torch.cat([fas.reshape(-1), erin_l, erin_u, erin_i, erin_o])
     weights = torch.where(
         counts > 0,
-        energies.to(f32) / torch.clamp_min(counts, 1),
+        energies.to(f32) / torch.clamp_min(counts * replicas, 1),
         0.0,
     ).to(f32)
     return SourceBudget(

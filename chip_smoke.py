@@ -17,9 +17,9 @@ Phases (any failure raises and the script exits non-zero):
    one iteration (integers exact, floats rtol 1e-5), >= 99% identical
    lanes after 256, bitwise repeatability, and the times: the kernel on
    the device alone (CUDA events around 20 launches on preallocated
-   outputs), the wrapper-included call, the plain version, the bound,
-   and from the kernel's counters its SIMT efficiency (lane-iterations
-   over 32 x warp passes);
+   outputs), the wrapper-included call, the plain version, the bound
+   (``roofline.flight_bound``), and from the kernel's counters its SIMT
+   efficiency (lane-iterations over 32 x warp passes);
 2b. the same for the kernel's strat mode (collisions freeze with
    FLAG_SCATTER), at the Mrk 421 shapes (131072 slots, 10x4 zones, 400
    energy and 200 gamma bins), with 512 iterations;
@@ -48,14 +48,20 @@ Phases (any failure raises and the script exits non-zero):
    solve on, 2 warm-up and 8 timed steps through ``Simulation.step()``,
    checking the kernel launches, device placement, the per-step energy
    audit, finite temperatures, escapes, repeatability from the seed, and
-   statistical agreement with the plain (CPU) path on a small grid;
+   statistical agreement with the plain (CPU) path on a small grid; the
+   roofline reading (``roofline.round_bytes`` times the run's rounds at
+   the HBM rate, against the step time);
 4. the Mrk 421 flare run at the width of the dense science run (10x4
    zones, 131072 slots, nst 200000, n_e 2e6, stratified splitting with
    gamma_c 3e4 and 64 copies) through ``run_to_stop`` to t_stop = 7e4 s
    with outputs attached, then the ``run_mrk421`` post-processing:
    every step's energy audit, strat-mode launches, frozen scatters and
-   placed copies, the event file, the SED's peaks and its synchrotron
-   hump's centre against the committed artifact's;
+   placed copies, the event file (written by the native formatter,
+   ``io.native``, and read back by its parse as by numpy), the SED's peaks
+   and its synchrotron hump's centre against the committed artifact's,
+   and the observation check (``obs_compare`` against the observed points
+   of the committed overlay: the X-ray median log ratio, s*, the TeV
+   residual and the sync peak, which must lie in 1e-2-1e1 keV);
 5. the pair corona: the reference's own pair configuration (the one
    ``tools/pallas_e2e.py`` builds: ``small_corona`` with 4x3 zones, 262144
    slots, nst 200000, a bounded nonthermal tail amxwl 0.5, gamma 3-20,
@@ -126,7 +132,9 @@ Phases (any failure raises and the script exits non-zero):
    timed steps through ``Simulation.step()``: every step's audit on every
    rank, finite temperatures, tallies and zone state bitwise equal across
    the ranks, B1 launches on each rank and no other mode, the ms/step,
-   histories/s, the collective's ms per step and FP substeps; two runs
+   histories/s, the collective's ms per step and FP substeps, and the
+   collectives census (``collectives.step_exchanges``: each exchange's
+   bytes, the same in every timed step); two runs
    from the seed bitwise equal; ``zone_shard`` on equal to off over 3
    steps (zone state and tallies, bitwise); 2 + 2 steps through a
    checkpoint with the walltime guard tripped on rank 1 only, bitwise
@@ -134,9 +142,23 @@ Phases (any failure raises and the script exits non-zero):
    files); the flight kernel against its plain version, as in phase 2, on
    rank 0's first-round inputs of its first timed step; and 1 rank (this
    process) against 2 ranks, 6 seeds a side and 3 steps each:
-   tools/pallas_e2e.py's test (z < 4 or a deviation below 1%) on escaped,
-   census, edep_total, scatter_gain and te_mean, each deviation logged
-   beside its noise floor.
+   tools/pallas_e2e.py's test (``e2e_gate.z_test``: z < 4 or a deviation
+   below 1%) on escaped, census, edep_total, scatter_gain and te_mean,
+   each deviation logged beside its noise floor;
+10. the gate against the reference's Pallas kernel at bench size
+   (``e2e_gate``): for each cell of the committed
+   ``compton2d_tpu_torch/data/gate_reference.json`` (``main_path``: the
+   8x4 bench corona, B1 with shared tables; ``pair_corona``:
+   tools/pallas_e2e.py's pair configuration, B2; ``grid_40x30``: the
+   windowed-test grid at 131072 slots, B4), the port's configuration
+   equal to the recorded one field for field, 12 seeds of the recorded
+   statistic (the last of S steps with the census roulette kept, in
+   every cell since its floors came in at or below 5%) on the card,
+   and ``e2e_gate.gate`` against the reference's 12 replicates
+   (tools/pallas_e2e.run_gate's test: the scalar channels, the escaping
+   spectrum against its split-half floor, the zone temperatures); every
+   channel's deviation, noise floor and z logged; the cell's mode only,
+   and no plain-version run.
 
 The first five phases' launches of the path-shaped modes read their
 tables from shared memory (checked with the wrapper's count of
@@ -146,7 +168,9 @@ shared memory (counted in the 8x4 entry of the kernels line) and the
 blazar blob's (10x5 zones, 252,064 bytes) from global memory, in an
 entry of their own, timed on that deck's inputs. Phase 9's launches (the
 same mode and tables on each rank's half of the slots) count in the 8x4
-entry too.
+entry too, as phase 10's main_path launches do; phase 10's pair_corona
+launches count in the pair entry and its grid_40x30 launches in the
+windowed entry.
 
 Each kernel's wrapper counts its launches; the counts are set to 0 just
 before each main path and read just after. The line before the last is a
@@ -172,11 +196,12 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from compton2d_tpu_torch import decks, driver, run_mrk421
+from compton2d_tpu_torch import (collectives, decks, driver, e2e_gate,
+                                 obs_compare, roofline, run_mrk421)
 from compton2d_tpu_torch.config import RunConfig
 from compton2d_tpu_torch.constants import SIGMA_THOMSON
 from compton2d_tpu_torch.examples import small_corona
-from compton2d_tpu_torch.io import checkpoint
+from compton2d_tpu_torch.io import checkpoint, native
 from compton2d_tpu_torch.parallel import distributed
 from compton2d_tpu_torch.physics import coulomb
 from compton2d_tpu_torch.state import PhotonArray
@@ -210,18 +235,6 @@ FP_TURNS = 6          # fp_step with and without the Coulomb terms
 AUDIT_TOL = 2e-3     # |balance - 1|, the JAX tests' bound
 MRK_AUDIT_TOL = 5e-3  # the bound of tests/test_mrk421.py
 MAX_TRIES = RunConfig().max_scatter_tries
-# published peaks of one H100 SXM (NVIDIA data sheet): HBM bytes/s and
-# float32 operations/s outside the tensor cores
-PEAK_BYTES_S = 3.35e12
-PEAK_F32_S = 67e12
-# operations of one lane-iteration in each state of the flight kernel,
-# counted from csrc/flight.cu (arithmetic, compares and the counter hash,
-# a transcendental as one): FLY rounded down; SCT_A as its CDF scan
-# alone; SCT_B as its sz candidate alone. Lower counts, so the bound
-# stays a least time.
-OPS_FLY, OPS_SCT_A, OPS_SCT_B = 200, 20, 40
-# the pair mode's kgg lookup and energy split in FLY, rounded down
-OPS_GG = 15
 # the pair mode's one-iteration check: the share of lanes that may exceed
 # rtol 1e-5, each within 10x its own sensitivity (lane_sensitivity)
 MAX_OVER = 1e-4
@@ -321,39 +334,6 @@ def run_flight(fn, photons, tables, seeds, max_iters, nz=NZ, nr=NR,
               seeds, nz=nz, nr=nr, weight_floor=weight_floor,
               max_iters=max_iters, max_tries=max_tries,
               inline_scatter=inline, pair_switch=pairs)
-
-
-def flight_bound(photons, tables, res, nz: int, nr: int,
-                 pairs: bool = False) -> dict:
-    """The least time of one flight-kernel entry on these inputs: the
-    larger of its bytes (each input read once, each output, log and the
-    (2, nz*nr) tally written once; the strat mode writes no logs; the
-    pair mode also reads the kgg table; the kernel's own intermediates,
-    such as its per-block tally partials and the windowed mode's base
-    blocks, are not the function's and are not counted) over the HBM rate
-    and its operations over the float32 rate. The operations are the lower
-    counts above times the least lane-iterations that the kernel's result
-    ``res`` shows: one flight per live lane and one more per scatter (each
-    with the kgg lookup in the pair mode), and one SCT_A and one SCT_B
-    iteration per scatter."""
-    n = photons["e"].shape[0]
-    nzr = nz * nr
-    table_elems = sum(t.numel() for t in (
-        tables.sig, tables.kap, tables.cdf, tables.guide, tables.gm1,
-        tables.r_edges, tables.z_edges) + ((tables.kgg,) if pairs else ()))
-    n_tiles = n // flight.TILE
-    bytes_in = 4 * (12 * n + n_tiles + table_elems)
-    bytes_out = 4 * (20 * n + 2 * nzr) + 8 * res.iglog.numel()
-    live = photons["alive"] & (photons["dcen"] > 0.0)
-    scatters = int(res.sct_cnt[live].sum())
-    flights = int(live.sum()) + scatters
-    ops = ((OPS_FLY + (OPS_GG if pairs else 0)) * flights
-           + (OPS_SCT_A + OPS_SCT_B) * scatters)
-    t_bytes = (bytes_in + bytes_out) / PEAK_BYTES_S
-    t_ops = ops / PEAK_F32_S
-    return {"bound_ms": 1e3 * max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "bytes": bytes_in + bytes_out, "ops": ops}
 
 
 def outputs_equal(a, b) -> bool:
@@ -619,7 +599,7 @@ def check_kernel(device, label: str, photons, tables, seeds, max_iters: int,
     launch = run_flight(flight.launch_only, photons, tables, seeds, max_iters,
                         **kw)
     device_ms = events_ms(launch)
-    bound = flight_bound(photons, tables, k, nz, nr, pairs)
+    bound = roofline.flight_bound(photons, tables, k, nz, nr, pairs)
     log(f"{label} (d) kernel {device_ms:.4f} ms on the device alone, "
         f"{wrapped_ms:.4f} ms with the wrapper, plain torch "
         f"{plain_ms:.4f} ms ({n} slots, {nz}x{nr} zones, max_iters="
@@ -739,6 +719,12 @@ def phase_main_path(device, card: str) -> int:
     log(f"main path on {card}: {ms_step:.3f} ms/step, "
         f"{histories / elapsed:.6e} histories/s, {rounds:.2f} tracking "
         f"rounds/step ({TIMED_STEPS} timed steps after {WARM_STEPS} warm-up)")
+    # the roofline reading: the tracking phase's rounds at the byte model
+    log(f"main path roofline: {roofline.round_bytes(sim)} bytes a tracking "
+        f"round (the kernel entry and the leak pass), "
+        f"{rounds * roofline.round_bytes(sim):.6e} bytes/step, tracking "
+        f"bound {roofline.tracking_bound_ms(sim, rounds):.6f} ms/step at "
+        f"{roofline.PEAK_BYTES_S:.3e} B/s against {ms_step:.3f} ms/step")
 
     # repeatability: a second run from the same seed gives bitwise-equal
     # tallies
@@ -775,6 +761,7 @@ MRK_ARGS = ["--nst", "200000", "--n-slots", "131072", "--n-e", "2e6",
             "--strat-gamma-c", "3e4", "--strat-copies", "64"]
 ARTIFACT = os.path.join("artifacts", "mrk421_dense", "summary.json")
 ARTIFACT_SED = os.path.join("artifacts", "mrk421_dense", "sed.dat")
+ARTIFACT_OBS = os.path.join("artifacts", "mrk421_dense", "obs_compare.json")
 # the synchrotron hump's centre (run_mrk421.sync_centroid_kev) against the
 # committed artifact's: within this factor. Eight CPU runs of port and
 # reference at a quarter of nst (tests/compare_mrk421.py) spread over
@@ -844,9 +831,20 @@ def phase_mrk421(device, card: str) -> int:
             if not abs(a["balance"] - 1.0) < MRK_AUDIT_TOL:
                 raise AssertionError(f"mrk421 step {i}: audit balance "
                                      f"{a['balance']}")
-        events = np.loadtxt(os.path.join(out_dir, "evb.dat")).reshape(-1, 7)
+        evb = os.path.join(out_dir, "evb.dat")
+        events = np.loadtxt(evb).reshape(-1, 7)
         if events.shape[0] <= 10000:
             raise AssertionError(f"{events.shape[0]} event records")
+        # the event file went through the native formatter, whose parse
+        # reads it back as numpy does
+        lib = native.library_path()
+        if not lib.exists() or not np.array_equal(
+                native.read_event_file(evb), events):
+            raise AssertionError(f"native event library {lib.name}: built "
+                                 f"{lib.exists()}, parse differs")
+        log(f"mrk421 event file: {events.shape[0]} records written by the "
+            f"native formatter ({lib.name}), {os.path.getsize(evb)} bytes, "
+            "its native parse equal to np.loadtxt")
         for name in ("spectrum.dat", "photons.dat", "temp_profile.dat",
                      "lc_mu00.dat"):
             if not os.path.getsize(os.path.join(out_dir, name)):
@@ -854,6 +852,8 @@ def phase_mrk421(device, card: str) -> int:
         peaks = run_mrk421.postprocess(events, sim.cfg.grid.r_max, out_dir)
         centre = run_mrk421.sync_centroid_kev(
             np.loadtxt(os.path.join(out_dir, "sed.dat")))
+        obs = obs_compare.compare(os.path.join(out_dir, "sed.dat"),
+                                  obs_compare.load_obs_overlay())
 
     sync, ssc = peaks["sync_peak_keV_obs"], peaks["ssc_peak_keV_obs"]
     if sync is None or not 0.05 < sync < 50.0:
@@ -866,6 +866,23 @@ def phase_mrk421(device, card: str) -> int:
     if not abs(np.log(centre / ref_centre)) < np.log(CENTROID_FACTOR):
         raise AssertionError(f"sync hump centre {centre:.4g} keV, artifact "
                              f"{ref_centre:.4g} keV")
+    with open(ARTIFACT_OBS) as fh:
+        ref_obs = json.load(fh)
+    log(f"mrk421 against the observed points (obs_compare, the committed "
+        f"overlay's {sum(len(v[0]) for v in obs_compare.load_obs_overlay().values())} "
+        f"points): X-ray median log10(model/obs) "
+        f"{obs['xray_log10_model_over_obs_median']:.6f} (artifact "
+        f"{ref_obs['xray_log10_model_over_obs_median']:.6f}), s* log10 "
+        f"{obs['global_renorm_log10']:.6f} (artifact "
+        f"{ref_obs['global_renorm_log10']:.6f}), TeV residual after s* "
+        f"{obs['tev_log10_residual_after_renorm']} (artifact "
+        f"{ref_obs['tev_log10_residual_after_renorm']}), sync peak "
+        f"{obs['model_sync_peak_keV_obs']} keV (artifact "
+        f"{ref_obs['model_sync_peak_keV_obs']}), in the observed decade "
+        f"{obs['sync_peak_in_obs_decade']}")
+    if not obs["sync_peak_in_obs_decade"]:
+        raise AssertionError(f"sync peak {obs['model_sync_peak_keV_obs']} "
+                             "keV outside 1e-2-1e1 keV")
     steps = len(outs)
     histories = sum(int(o.n_tracked) for o in outs)
     rounds = sum(int(o.tallies.trk_rounds) for o in outs) / steps
@@ -1568,8 +1585,6 @@ def check_resume(device, out_dir: str) -> int:
                                  state_tensors(whole.state)):
         if not (a.dtype == b.dtype and torch.equal(a, b)):
             raise AssertionError(f"resumed state {name} differs")
-    for sim in (first, resumed, whole):
-        sim.event_writer.close()
     ev_cut = os.path.join(out_dir, "cut", "evb.dat")
     ev_whole = os.path.join(out_dir, "whole", "evb.dat")
     with open(ev_cut, "rb") as fa, open(ev_whole, "rb") as fb:
@@ -1826,10 +1841,9 @@ def phase_production(device, card: str) -> Tuple[int, dict]:
 RANKS = 2
 P9_WARM, P9_TIMED, P9_FARM_STEPS, P9_CUT = 2, 4, 3, 2
 # the 1-vs-2-rank test: seeds a side, steps a seed, tools/pallas_e2e.py's
-# channels, z threshold and relative floor
+# channels (its z threshold and relative floor are e2e_gate's)
 Z_SEEDS, Z_STEPS = 6, 3
 Z_CHANNELS = ("escaped", "census", "edep_total", "scatter_gain", "te_mean")
-CAL_MULT, REL_FLOOR = 4.0, 0.01
 ONE_RANK_SEED, TWO_RANK_SEED = 300, 400
 RANKS_TIMEOUT, RANKS_INIT_TIMEOUT = 600.0, 120.0
 
@@ -1909,7 +1923,8 @@ def rank_main_path(mesh, device) -> dict:
         torch.cuda.synchronize()
         comm0, calls0, bytes0 = mesh.comm_s, mesh.comm_calls, mesh.comm_bytes
         t0 = time.perf_counter()
-        outs += [sim.step() for _ in range(P9_TIMED)]
+        timed_outs, sizes = collectives.step_exchanges(sim, P9_TIMED)
+        outs += timed_outs
         torch.cuda.synchronize()
         elapsed = time.perf_counter() - t0
     finally:
@@ -1936,6 +1951,7 @@ def rank_main_path(mesh, device) -> dict:
         comm_ms_step=1e3 * (mesh.comm_s - comm0) / P9_TIMED,
         comm_calls_step=(mesh.comm_calls - calls0) / P9_TIMED,
         comm_bytes_step=(mesh.comm_bytes - bytes0) / P9_TIMED,
+        exchanges=collectives.summary(sizes),
         slots=sim.state.photons.n_slots,
         outs=outs, captured=captured.get("args"), summary=sim.summary())
 
@@ -1986,8 +2002,6 @@ def rank_resume(mesh, device, out_dir: str) -> dict:
     bad += [name for (name, a), (_, b) in zip(state_tensors(resumed.state),
                                               state_tensors(whole.state))
             if not (a.dtype == b.dtype and torch.equal(a, b))]
-    for sim in (cut, resumed, whole):
-        sim.event_writer.close()
     return dict(completed=completed, differing=bad,
                 files=(cut.event_writer.path, whole.event_writer.path),
                 shard=checkpoint.shard_path(ck, mesh.rank))
@@ -2015,19 +2029,15 @@ def phase9_rank(mesh, out_dir: str) -> dict:
 
 
 def z_test(one: list, two: list) -> dict:
-    """tools/pallas_e2e.py's test of each channel: the relative deviation
-    of the means against the relative 1-sigma error of their difference
-    (the noise floor); a channel passes with z < CAL_MULT or a deviation
-    below REL_FLOOR."""
+    """e2e_gate's test (tools/pallas_e2e.py's) of each channel, 2 ranks
+    against 1: the relative deviation of the means against the relative
+    1-sigma error of their difference (the noise floor); a channel passes
+    with z < CAL_MULT or a deviation below REL_FLOOR."""
     out = {}
     for q in Z_CHANNELS:
-        a = np.asarray([r[q] for r in two], np.float64)
-        b = np.asarray([r[q] for r in one], np.float64)
-        ref = max(abs(b.mean()), abs(a.mean()), 1e-300)
-        dev = abs(a.mean() - b.mean()) / ref
-        sig = math.sqrt(a.var(ddof=1) / len(a) + b.var(ddof=1) / len(b)) / ref
-        out[q] = dict(rel_dev=dev, noise_floor=sig,
-                      passed=bool(dev < CAL_MULT * sig or dev < REL_FLOOR))
+        dev, sig, ok = e2e_gate.z_test([r[q] for r in two],
+                                       [r[q] for r in one])
+        out[q] = dict(rel_dev=dev, noise_floor=sig, passed=ok)
     return out
 
 
@@ -2082,6 +2092,13 @@ def phase_ranks(device, card: str) -> Tuple[int, dict]:
         if f["repeat"] or f["farm"]:
             raise AssertionError(f"rank {rank}: not repeatable {f['repeat']}"
                                  f"; zone_shard on vs off {f['farm']}")
+        ex = m["exchanges"]
+        if not ex["steps_equal"] or ex["bytes_per_step"][0] != m[
+                "comm_bytes_step"]:
+            raise AssertionError(f"rank {rank} collectives {ex}")
+        log(f"two ranks, rank {rank} collectives: {ex['exchanges_per_step']} "
+            f"exchanges a step of {ex['sizes']} bytes, "
+            f"{ex['bytes_per_step']} bytes a step, the same every step")
         log(f"two ranks, rank {rank} on {card}: {m['ms_step']:.3f} ms/step, "
             f"{m['histories_s']:.6e} histories/s (both ranks' photons), "
             f"collective {m['comm_ms_step']:.3f} ms/step in "
@@ -2119,6 +2136,118 @@ def phase_ranks(device, card: str) -> Tuple[int, dict]:
     if not all(v["passed"] for v in zt.values()):
         raise AssertionError(f"1 vs 2 ranks: {zt}")
     return launches, res[0]["kernel"]
+
+
+# ---------------------------------------------------------------------------
+# phase 10: the gate against the reference's Pallas kernel at bench size
+# ---------------------------------------------------------------------------
+def gate_launches_ok(cell: str, plain_runs: int) -> bool:
+    """The cell's flight-kernel mode only, and no plain-version run: B1
+    with shared tables (main_path), B2 (pair_corona), B4 (grid_40x30)."""
+    inline, pair = flight.LAUNCHES, flight.PAIR_LAUNCHES
+    window, glob = flight.WINDOW_LAUNCHES, flight.GLOBAL_LAUNCHES
+    if plain_runs or flight.STRAT_LAUNCHES or inline <= 0:
+        return False
+    mode = e2e_gate.CELL_MODE[cell]
+    if mode == "B1":
+        return pair == window == glob == 0
+    if mode == "B2":
+        return pair == inline and window == glob == 0
+    return window == inline == glob and pair == 0
+
+
+def phase_gate(device, card: str) -> dict:
+    """Each cell of the committed reference JSON: the port's config equal
+    to the recorded one field for field, K seeds of the recorded statistic
+    on the card, e2e_gate.gate against the reference's replicates; returns
+    the launches of each cell."""
+    ref = e2e_gate.load_reference()
+    plain_runs = [0]
+    reference = flight.flight_step_reference
+
+    def counted_reference(*a, **k):
+        plain_runs[0] += 1
+        return reference(*a, **k)
+
+    launches = {}
+    flight.flight_step_reference = counted_reference
+    try:
+        for cell in e2e_gate.CELLS:
+            rc = ref[cell]
+            t0 = time.perf_counter()
+            sim = e2e_gate.build_cell(cell, rc["statistic"], device)
+            bad = e2e_gate.check_config(sim, rc)
+            if bad:
+                raise AssertionError(f"gate {cell}: config differs from the "
+                                     f"reference's in {bad}")
+            state0 = sim.state
+            k = len(rc["seeds"])
+            plain_runs[0] = 0
+            reset_launches()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            reps = [e2e_gate.replicate_channels(
+                sim, state0, e2e_gate.PORT_SEED + 13 * i, rc["steps"],
+                rc["tally_from"]) for i in range(k)]
+            torch.cuda.synchronize()
+            run_s = time.perf_counter() - t1
+            if not gate_launches_ok(cell, plain_runs[0]):
+                raise AssertionError(
+                    f"gate {cell} launches: inline {flight.LAUNCHES} pair "
+                    f"{flight.PAIR_LAUNCHES} windowed {flight.WINDOW_LAUNCHES}"
+                    f" global-table {flight.GLOBAL_LAUNCHES} strat "
+                    f"{flight.STRAT_LAUNCHES} plain {plain_runs[0]}")
+            launches[cell] = flight.LAUNCHES
+            res = e2e_gate.gate(reps, rc)
+            full = e2e_gate.gate(reps, rc, ndigits=None)
+            for q, dev in full["rel_dev"].items():
+                fl = full["noise_floor"][q]
+                check = res["checks"].get(f"rel_{q}", res["checks"].get(q))
+                if q == "te_worst_zone":
+                    check = res["checks"]["te_zones"]
+                z = f"{dev / fl:.3f}" if fl > 0 else "n/a (floor 0)"
+                log(f"gate {cell} {q}: rel_dev {dev:.6e} noise_floor "
+                    f"{fl:.6e} z {z} {'pass' if check else 'FAIL'}")
+            log(f"gate {cell} ({e2e_gate.CELL_MODE[cell]}, statistic "
+                f"{rc['statistic']}, {rc['steps']} steps, {k} seeds a side) "
+                f"on {card}: checks {res['checks']}, stiff zones "
+                f"{res['n_stiff_zones']}, worst |balance - 1| port "
+                f"{res['balance_pallas_worst']:.3e} reference "
+                f"{res['balance_xla_worst']:.3e}, mean Te port "
+                f"{np.mean([r['te_mean'] for r in reps]):.4f} reference "
+                f"{np.mean([r['te_mean'] for r in rc['replicates']]):.4f} "
+                f"keV, source energy lost to full slots port "
+                f"{np.mean([r['src_lost'] for r in reps]):.4e} reference "
+                f"{np.mean([r['src_lost'] for r in rc['replicates']]):.4e} "
+                f"erg; {launches[cell]} launches, "
+                f"{1e3 * run_s / (k * rc['steps']):.3f} ms/step, "
+                f"{run_s:.2f} s for the replicates, "
+                f"{time.perf_counter() - t0:.2f} s with the set-up "
+                f"(reference: {rc['cpu_seconds']:.1f} CPU s, jax "
+                f"{rc['jax_version']})")
+            te_p = np.stack([r["te"] for r in reps])
+            te_x = np.asarray([r["te"] for r in rc["replicates"]])
+            sig = np.sqrt(te_p.var(0, ddof=1) / k + te_x.var(0, ddof=1) / k)
+            dev = np.abs(te_p.mean(0) - te_x.mean(0))
+            z = dev / np.maximum(sig, 1e-30)
+            # the zones behind te_worst_zone's deviation and floor, and
+            # every failing zone
+            shown = {np.unravel_index(np.argmax(dev), dev.shape),
+                     np.unravel_index(np.argmax(sig), sig.shape),
+                     *zip(*np.nonzero(z >= e2e_gate.CAL_MULT))}
+            for j, i in sorted(shown):
+                log(f"gate {cell} zone ({j}, {i}): Te port "
+                    f"{te_p[:, j, i].mean():.4f} +- "
+                    f"{te_p[:, j, i].std(ddof=1):.4f} reference "
+                    f"{te_x[:, j, i].mean():.4f} +- "
+                    f"{te_x[:, j, i].std(ddof=1):.4f} keV (seed spread), "
+                    f"z {z[j, i]:.3f}")
+            if not res["passed"]:
+                raise AssertionError(f"gate {cell} failed: {res}")
+            del sim, state0, reps
+    finally:
+        flight.flight_step_reference = reference
+    return launches
 
 
 def main() -> int:
@@ -2159,6 +2288,7 @@ def main() -> int:
     log(f"Coulomb kernel entry: {json.dumps(k_prod)}")
     launches_ranks, k_ranks = phase_ranks(device, card)
     log(f"two-rank kernel entry: {json.dumps(k_ranks)}")
+    launches_gate = phase_gate(device, card)
 
     replaces = "compton2d_tpu/transport/flight_pallas2.py:347"
     log(json.dumps({"kernels": [
@@ -2166,7 +2296,7 @@ def main() -> int:
          "source": "compton2d_tpu_torch/csrc/flight.cu",
          "replaces": replaces,
          "launches": (launches_inline + launches_disk + launches_prod
-                      + launches_ranks),
+                      + launches_ranks + launches_gate["main_path"]),
          "library_ms": None, **k_inline},
         {"name": "flight_kernel_strat", "route": "cuda",
          "source": "compton2d_tpu_torch/csrc/flight.cu",
@@ -2174,7 +2304,8 @@ def main() -> int:
          "library_ms": None, **k_strat},
         {"name": "flight_kernel_pairs", "route": "cuda",
          "source": "compton2d_tpu_torch/csrc/flight.cu",
-         "replaces": replaces, "launches": launches_pairs,
+         "replaces": replaces,
+         "launches": launches_pairs + launches_gate["pair_corona"],
          "library_ms": None, **k_pairs},
         {"name": "flight_kernel_pairs_strat", "route": "cuda",
          "source": "compton2d_tpu_torch/csrc/flight.cu",
@@ -2182,7 +2313,8 @@ def main() -> int:
          "library_ms": None, **k_pairs_strat},
         {"name": "flight_kernel_windowed", "route": "cuda",
          "source": "compton2d_tpu_torch/csrc/flight.cu",
-         "replaces": replaces, "launches": launches_window,
+         "replaces": replaces,
+         "launches": launches_window + launches_gate["grid_40x30"],
          "library_ms": None, **k_window},
         {"name": "flight_kernel_global_tables", "route": "cuda",
          "source": "compton2d_tpu_torch/csrc/flight.cu",

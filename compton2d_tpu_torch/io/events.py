@@ -14,9 +14,10 @@ mesh each rank flushes its own records to its own file
 (``parallel.distributed.process_event_path``).
 
 Two sinks:
-- :class:`EventFileWriter` — reference-format text file, written with
-  ``np.savetxt(fmt="%14.7e")`` (the JAX package's writer without its
-  native formatter, byte for byte the same text);
+- :class:`EventFileWriter` — reference-format text file, formatted by the
+  native library (:func:`compton2d_tpu_torch.io.native.write_event_rows`,
+  as the JAX package's writer formats it; byte for byte the text of
+  ``np.savetxt(fmt="%14.7e")``);
 - :class:`EventArrayStore` — in-memory numpy stack for the post-processing
   in :mod:`compton2d_tpu_torch.io.postprocess`.
 """
@@ -27,6 +28,8 @@ from typing import List
 
 import numpy as np
 import torch
+
+from compton2d_tpu_torch.io import native
 
 
 def _to_host(arr) -> np.ndarray:
@@ -73,20 +76,19 @@ class EventFileWriter:
         self.path = path
         self.energy_scale = energy_scale
         os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-        self._fh = open(path, "a" if append else "w")
+        # the native formatter appends by path: create (or truncate) the
+        # file here, and build the library before the first step
+        with open(path, "a" if append else "w"):
+            pass
+        native.build()
         self.n_written = 0
         self.n_dropped = 0
 
     def write(self, events) -> int:
         rec = buffer_to_numpy(events, self.energy_scale)
         self.n_dropped += _n_dropped(events)
-        np.savetxt(self._fh, rec, fmt="%14.7e")
-        self._fh.flush()
-        self.n_written += rec.shape[0]
+        self.n_written += native.write_event_rows(self.path, rec)
         return rec.shape[0]
-
-    def close(self):
-        self._fh.close()
 
 
 class EventArrayStore:

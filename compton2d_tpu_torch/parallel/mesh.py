@@ -35,7 +35,7 @@ from __future__ import annotations
 import os
 import time
 from dataclasses import dataclass
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -47,7 +47,9 @@ SUM, MAX, MIN, CAT = "sum", "max", "min", "cat"
 class PhotonMesh:
     """A process group seen from one rank, with the time this rank spent
     in its collectives (``comm_s``, host clock around each all_gather)
-    and their count and bytes sent (``comm_calls``, ``comm_bytes``)."""
+    and their count and bytes sent (``comm_calls``, ``comm_bytes``); while
+    ``exchange_sizes`` is a list, each exchange appends its bytes to it
+    (``compton2d_tpu_torch.collectives``)."""
 
     rank: int
     world: int
@@ -56,6 +58,7 @@ class PhotonMesh:
     comm_s: float = 0.0
     comm_calls: int = 0
     comm_bytes: int = 0
+    exchange_sizes: Optional[list] = None
 
 
 def rank_device(local_rank: int) -> torch.device:
@@ -116,6 +119,8 @@ def exchange(mesh: PhotonMesh, parts: Sequence[Tuple[torch.Tensor, str]]
     mesh.comm_s += time.perf_counter() - t0
     mesh.comm_calls += 1
     mesh.comm_bytes += buf.numel()
+    if mesh.exchange_sizes is not None:
+        mesh.exchange_sizes.append(buf.numel())
     g = torch.stack(gathered).to(on_device)
     out, off = [], 0
     for (t, op), b in zip(parts, flat):

@@ -4,9 +4,9 @@ artifact (the port's counterpart of ``tools/run_mrk421.py``).
 1. runs ``examples.mrk421`` to t_stop = 7e4 s (comoving) with stratified
    tail splitting and outputs attached (event records in the reference's
    7-column format);
-2. post-processes the escaping-photon events (``io.postprocess``):
-   Doppler-boosted 7-band light curves at the reference's 700-s observed
-   cadence and the time-integrated SED;
+2. post-processes the escaping-photon events (the native library's
+   binning, ``io.native``): Doppler-boosted 7-band light curves at the
+   reference's 700-s observed cadence and the time-integrated SED;
 3. writes sed.dat (E, nuFnu, counts, nuFnu at Earth), lc.dat (t, 7 band
    rates) and summary.json (peak locations, fluxes, run metadata) into
    ``--out``, with the keys of the reference's summary.json.
@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from compton2d_tpu_torch.examples import MRK421_BANDS, mrk421
+from compton2d_tpu_torch.io import native
 from compton2d_tpu_torch.io import postprocess as pp
 
 GAMMA_BULK = 33.0          # postprocessing/mrk421_lc.input:2
@@ -86,7 +87,7 @@ def postprocess(events: np.ndarray, r_max: float, out_dir: str) -> dict:
     tr = pp.doppler_transform(events, GAMMA_BULK, r_max)
     t_obs_all = tr[:, 0]
     t_span = float(np.percentile(t_obs_all, 99.5)) or 1.0
-    s = pp.sed(events, GAMMA_BULK, r_max, 0.0, t_span, e_edges,
+    s = native.sed(events, GAMMA_BULK, r_max, 0.0, t_span, e_edges,
                mu_range=MU_RANGE)
     e_mid = np.sqrt(e_edges[1:] * e_edges[:-1])
     de = np.diff(e_edges)
@@ -108,7 +109,7 @@ def postprocess(events: np.ndarray, r_max: float, out_dir: str) -> dict:
     # light curves at the reference cadence
     t_hi = np.percentile(t_obs_all, 99.5)
     t_edges = np.arange(0.0, t_hi + T_BIN_OBS, T_BIN_OBS)
-    lc = pp.light_curves(events, GAMMA_BULK, r_max, t_edges,
+    lc = native.light_curves(events, GAMMA_BULK, r_max, t_edges,
                          np.asarray(MRK421_BANDS))
     rate = lc.rate().sum(axis=1)   # erg/s, summed over mu bins
     hdr = "t_mid[s] " + " ".join(

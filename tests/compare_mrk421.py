@@ -8,9 +8,12 @@ both packages and one process per side and seed, each into
 count, the SED's raw synchrotron peak, the hump's centre
 (``run_mrk421.sync_centroid_kev``) and the heaviest bin's share of the
 sync band (both sides post-processed by the port's ``run_mrk421``), the
-SSC peak, the mean zone temperature and the mean Lorentz factor of the
-zones' electron spectra after the last FP step. The last line gives each
-side's means. ``--ftz`` adds the port with float32 denormals flushed.
+SSC peak, the mean zone temperature, the mean Lorentz factor of the
+zones' electron spectra after the last FP step, and the observation
+check's readings of the SED (``obs_compare.compare`` against the
+committed overlay's points: its sync peak, the X-ray median log ratio,
+s* and the TeV residuals at 0.5 and 1 TeV). The last line gives each
+side's means and its range over the seeds. ``--ftz`` adds the port with float32 denormals flushed.
 Not a test (it takes minutes)::
 
   python tests/compare_mrk421.py --seeds 0 1 2 3 --ftz --out /tmp/cmp
@@ -27,7 +30,9 @@ import sys
 import numpy as np
 
 KEYS = ("n_events", "sync_peak_keV_obs", "sync_centroid_keV",
-        "top_bin_share", "ssc_peak_keV_obs", "tea_mean", "mean_gamma")
+        "top_bin_share", "ssc_peak_keV_obs", "tea_mean", "mean_gamma",
+        "obs_sync_peak_keV", "obs_xray_log10_median", "obs_renorm_log10",
+        "obs_tev_resid_0p5", "obs_tev_resid_1")
 
 
 def one(side: str, seed: int, nst: int, out: str) -> dict:
@@ -36,7 +41,7 @@ def one(side: str, seed: int, nst: int, out: str) -> dict:
     os.environ["JAX_PLATFORMS"] = "cpu"
     import torch
 
-    from compton2d_tpu_torch import mrk421_seeds, run_mrk421
+    from compton2d_tpu_torch import mrk421_seeds, obs_compare, run_mrk421
     torch.set_num_threads(2)
     kw = dict(nz=10, nr=4, nst=nst, n_slots=1 << 15, n_e=2e6, seed=seed)
     if side == "jax":
@@ -61,8 +66,15 @@ def one(side: str, seed: int, nst: int, out: str) -> dict:
     events = np.loadtxt(os.path.join(out, "evb.dat")).reshape(-1, 7)
     peaks = run_mrk421.postprocess(events, sim.cfg.grid.r_max, out)
     sed = mrk421_seeds.sync_stats(np.loadtxt(os.path.join(out, "sed.dat")))
+    obs = obs_compare.compare(os.path.join(out, "sed.dat"),
+                              obs_compare.load_obs_overlay())
+    tev = obs["tev_log10_residual_after_renorm"]
     return {"side": side, "seed": seed, "n_events": int(len(events)), **sed,
             "ssc_peak_keV_obs": peaks["ssc_peak_keV_obs"],
+            "obs_sync_peak_keV": obs["model_sync_peak_keV_obs"],
+            "obs_xray_log10_median": obs["xray_log10_model_over_obs_median"],
+            "obs_renorm_log10": obs["global_renorm_log10"],
+            "obs_tev_resid_0p5": tev[0], "obs_tev_resid_1": tev[1],
             "tea_mean": float(tea.mean()),
             "mean_gamma": float(np.mean((f_nt * gamma).sum(-1)
                                         / f_nt.sum(-1)))}
@@ -98,11 +110,15 @@ def main():
             raise SystemExit(f"a run failed ({p.returncode})")
         rows.append(json.loads(out.strip().splitlines()[-1]))
         print(json.dumps(rows[-1]), flush=True)
-    means = {side: {k: float(np.mean([r[k] for r in rows
-                                      if r["side"] == side
-                                      and r[k] is not None]))
-                    for k in KEYS} for side in sides}
-    print(json.dumps({"seeds": args.seeds, "nst": args.nst, "means": means}))
+    def vals(side, k):
+        return [r[k] for r in rows if r["side"] == side and r[k] is not None]
+
+    means = {side: {k: float(np.mean(vals(side, k))) for k in KEYS}
+             for side in sides}
+    ranges = {side: {k: [float(min(vals(side, k))), float(max(vals(side, k)))]
+                     for k in KEYS if vals(side, k)} for side in sides}
+    print(json.dumps({"seeds": args.seeds, "nst": args.nst, "means": means,
+                      "ranges": ranges}))
 
 
 if __name__ == "__main__":

@@ -74,8 +74,6 @@ def test_resume_is_bitwise(tmp_path, config):
     for (name, a), (_, b) in zip(_tensors(resumed.state),
                                  _tensors(whole.state)):
         assert a.dtype == b.dtype and torch.equal(a, b), name
-    for sim in (first, resumed, whole):
-        sim.event_writer.close()
     assert resumed.event_writer.n_written > 0
     assert filecmp.cmp(tmp_path / "cut" / "evb.dat",
                        tmp_path / "whole" / "evb.dat", shallow=False)

@@ -64,7 +64,6 @@ def test_event_sinks_equal_reference(tmp_path):
         assert pw.write(pb) == jw.write(jb)
         assert ps.write(pb) == js.write(jb)
     jw.close()
-    pw.close()
     np.testing.assert_array_equal(ps.all(), js.all())
     assert (ps.n_dropped, pw.n_dropped, pw.n_written) == (
         js.n_dropped, jw.n_dropped, jw.n_written)

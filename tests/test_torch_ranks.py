@@ -97,7 +97,6 @@ def event_flush(mesh, out_dir: str) -> dict:
     sim.attach_outputs(out_dir)
     counts = [int(sim.step().events.count.sum()) for _ in range(2)]
     w = sim.event_writer
-    w.close()
     return dict(path=w.path, counts=counts, written=w.n_written,
                 dropped=w.n_dropped, outputs=sim.outputs is not None)
 
@@ -134,8 +133,6 @@ def resume(mesh, out_dir: str, first_steps: int, more_steps: int) -> dict:
     whole = _with_run(small_corona(**kw, mesh=mesh), t_stop=1e30)
     whole.attach_outputs(os.path.join(out_dir, "whole"))
     ref = [whole.step() for _ in range(first_steps + more_steps)]
-    for sim in (first, resumed, whole):
-        sim.event_writer.close()
     bad = []
     for i, (a, b) in enumerate(zip(outs, ref)):
         bad += [f"step {i} {f}" for f in differing(tallies_np(a),

@@ -83,8 +83,10 @@ def test_same_seed_bitwise_repeatable():
 
 def test_port_imports_neither_jax_nor_the_jax_package():
     """A fresh interpreter runs one step of the port, and one with pair
-    physics on (which loads physics/pairs.py); neither jax nor any
-    compton2d_tpu module is loaded. The reference's config / constants /
+    physics on (which loads physics/pairs.py), then imports every module
+    of the port (the gate, the observation check, the native library and
+    the measurement tools among them) and chip_smoke.py; neither jax nor
+    any compton2d_tpu module is loaded. The reference's config / constants /
     units modules stay jax-free as well."""
     code = (
         "import sys\n"
@@ -94,6 +96,14 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "small_corona(nz=2, nr=2, nst=300, n_slots=1024, num_nt=30, "
         "n_vol=32, nphfield=32, pair_switch=1, device='cpu').step()\n"
         "assert 'compton2d_tpu_torch.physics.pairs' in sys.modules\n"
+        "import importlib, pkgutil, compton2d_tpu_torch as pkg\n"
+        "for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "for m in ('e2e_gate', 'obs_compare', 'roofline', 'collectives',\n"
+        "          'weak_scaling', 'strat_fom', 'profile_sourcing',\n"
+        "          'io.native'):\n"
+        "    assert 'compton2d_tpu_torch.' + m in sys.modules, m\n"
+        "import chip_smoke\n"
         "assert 'jax' not in sys.modules\n"
         "assert not [m for m in sys.modules if m.split('.')[0] == "
         "'compton2d_tpu']\n"

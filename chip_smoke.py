@@ -149,8 +149,10 @@ Phases (any failure raises and the script exits non-zero):
    (``e2e_gate``): for each cell of the committed
    ``compton2d_tpu_torch/data/gate_reference.json`` (``main_path``: the
    8x4 bench corona, B1 with shared tables; ``pair_corona``:
-   tools/pallas_e2e.py's pair configuration, B2; ``grid_40x30``: the
-   windowed-test grid at 131072 slots, B4), the port's configuration
+   tools/pallas_e2e.py's pair configuration, B2; ``pair_corona_strat``:
+   the same with stratified splitting (gamma_c 10, p_max 0.5), B2 with
+   B3; ``grid_40x30``: the windowed-test grid at 131072 slots, B4), the
+   port's configuration
    equal to the recorded one field for field, 12 seeds of the recorded
    statistic (the last of S steps with the census roulette kept, in
    every cell since its floors came in at or below 5%) on the card,
@@ -158,7 +160,22 @@ Phases (any failure raises and the script exits non-zero):
    (tools/pallas_e2e.run_gate's test: the scalar channels, the escaping
    spectrum against its split-half floor, the zone temperatures); every
    channel's deviation, noise floor and z logged; the cell's mode only,
-   and no plain-version run.
+   and no plain-version run;
+11. the repository's two root entry points as ported:
+   ``python -m compton2d_tpu_torch.bench`` in a process of its own at its
+   default size (the main path's 2 warm-up and 16 timed steps, Mrk 421,
+   and the ``pair_corona`` and ``pair_corona_strat`` gates), its last
+   line one record with bench.py's keys, a positive rate, B1 launches on
+   its main path and both gate records passed and equal to phase 10's
+   (the same seeds give the same replicates); then
+   ``dryrun.dryrun_multichip(2)``: the main path's widths with pairs and
+   the Coulomb terms on 2 gloo ranks sharing cuda:0 (32768 slots a rank,
+   an event buffer of 64 records, the census roulette's thresholds at
+   0.05 and 0.03) against one rank of the same global photon count (the
+   first step's budget to rtol 1e-6, the roulette fired, every audit
+   within 5e-3, the census within 0.5x-2x, one event count a rank with
+   its dropped records counted), and the 1-vs-2-rank z-test over 5 seeds
+   a side at the tiny shapes (z < 4), with pair-mode launches only.
 
 The first five phases' launches of the path-shaped modes read their
 tables from shared memory (checked with the wrapper's count of
@@ -169,8 +186,11 @@ blazar blob's (10x5 zones, 252,064 bytes) from global memory, in an
 entry of their own, timed on that deck's inputs. Phase 9's launches (the
 same mode and tables on each rank's half of the slots) count in the 8x4
 entry too, as phase 10's main_path launches do; phase 10's pair_corona
-launches count in the pair entry and its grid_40x30 launches in the
-windowed entry.
+launches count in the pair entry, its pair_corona_strat launches in
+the strat pair entry and its grid_40x30 launches in the windowed entry;
+phase 11's dry-run launches (pair mode, in the ranks and in this
+process) count in the pair entry. The bench's launches are its own
+process's, read from its record and not counted in the line.
 
 Each kernel's wrapper counts its launches; the counts are set to 0 just
 before each main path and read just after. The line before the last is a
@@ -196,8 +216,8 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from compton2d_tpu_torch import (collectives, decks, driver, e2e_gate,
-                                 obs_compare, roofline, run_mrk421)
+from compton2d_tpu_torch import (bench, collectives, decks, driver, dryrun,
+                                 e2e_gate, obs_compare, roofline, run_mrk421)
 from compton2d_tpu_torch.config import RunConfig
 from compton2d_tpu_torch.constants import SIGMA_THOMSON
 from compton2d_tpu_torch.examples import small_corona
@@ -242,21 +262,6 @@ MAX_OVER = 1e-4
 
 def log(msg: str) -> None:
     print(msg, flush=True)
-
-
-def reset_launches() -> None:
-    """Set every kernel launch count of the flight wrapper to 0."""
-    flight.LAUNCHES = flight.STRAT_LAUNCHES = flight.PAIR_LAUNCHES = 0
-    flight.WINDOW_LAUNCHES = flight.GLOBAL_LAUNCHES = 0
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    ).stdout.strip().splitlines()
-    return out[0]
 
 
 # ---------------------------------------------------------------------------
@@ -672,7 +677,7 @@ def small_audit(device, seed: int):
 def phase_main_path(device, card: str) -> int:
     sim = bench_sim(device)
     outs = []
-    reset_launches()
+    flight.reset_launch_counts()
     for _ in range(WARM_STEPS):
         outs.append(sim.step())
     torch.cuda.synchronize()
@@ -799,7 +804,7 @@ def phase_mrk421(device, card: str) -> int:
 
         sim.step = audited_step
         tracking.apply_scatter = counted
-        reset_launches()
+        flight.reset_launch_counts()
         try:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -989,7 +994,7 @@ def phase_pairs(device, card: str) -> Tuple[int, int]:
     flight.flight_step_reference = counted_reference
     try:
         sim = pair_sim(device)
-        reset_launches()
+        flight.reset_launch_counts()
         warm, _ = drive_pairs(sim, WARM_STEPS)
         timed, elapsed = drive_pairs(sim, PAIR_TIMED)
         launches = flight.PAIR_LAUNCHES
@@ -1069,7 +1074,7 @@ def phase_pairs_strat(device, card: str, plain_runs: list) -> int:
         iters[-1] += int(res.it_used)
         return res
 
-    reset_launches()
+    flight.reset_launch_counts()
     sim = pair_sim(device, strat=True)
     cap = sim.cfg.run.max_flight_iters
     outs = []
@@ -1191,7 +1196,7 @@ def phase_large(device, card: str) -> Tuple[int, int]:
         sim = bench_sim(device, nz=LARGE_NZ, nr=LARGE_NR, nst=LARGE_NST,
                         n_slots=LARGE_SLOTS)
         torch.cuda.reset_peak_memory_stats(device)
-        reset_launches()
+        flight.reset_launch_counts()
         outs, elapsed = drive_large(sim, LARGE_WARM, LARGE_TIMED)
         launches = check_windowed_run("large_corona", plain_runs)
         peak = torch.cuda.max_memory_allocated(device)
@@ -1210,7 +1215,7 @@ def phase_large(device, card: str) -> Tuple[int, int]:
 
         # the reference's windowed-test grid (tests/test_flight_pallas2.py)
         # at the main path's widths and slots, twice from the seed
-        reset_launches()
+        flight.reset_launch_counts()
         sim = bench_sim(device, nz=GRID_NZ, nr=GRID_NR)
         outs, elapsed = drive_large(sim, 0, GRID_STEPS)
         check_windowed_run("grid 40x30", plain_runs)
@@ -1234,7 +1239,7 @@ def phase_large(device, card: str) -> Tuple[int, int]:
 
         # the largest resident grid, whose tables are read from global
         # memory
-        reset_launches()
+        flight.reset_launch_counts()
         sim = bench_sim(device, nz=RESIDENT_NZ, nr=RESIDENT_NR)
         outs, elapsed = drive_large(sim, 0, GRID_STEPS)
         global_launches = flight.GLOBAL_LAUNCHES
@@ -1387,7 +1392,7 @@ def phase_decks(device, card: str) -> Tuple[int, int, dict]:
             record: list = []
             boosts.clear()
             dt_new.clear()
-            reset_launches()
+            flight.reset_launch_counts()
             outs = drive_deck(sim, DECK_WARM, record)
             torch.cuda.synchronize()
             capture["as"] = label if check else None
@@ -1556,7 +1561,7 @@ def check_resume(device, out_dir: str) -> int:
     tensor and the generator's state, every step's tallies and the event
     file bitwise equal. Returns the flight kernel's launches."""
     n = CKPT_FIRST + CKPT_RESUMED
-    reset_launches()
+    flight.reset_launch_counts()
     first = slice_sim(device).attach_outputs(os.path.join(out_dir, "cut"))
     outs = [first.step() for _ in range(CKPT_FIRST)]
     ck = os.path.join(out_dir, "ck", "state.npz")
@@ -1740,7 +1745,7 @@ def phase_production(device, card: str) -> Tuple[int, dict]:
     flight.flight_step = captured_step
     driver.fp_step = captured_fp
     try:
-        reset_launches()
+        flight.reset_launch_counts()
         outs = [sim.step()]
         check_photon_fill(sim, "at cycle 1", cycle_one=True)
         outs += [sim.step() for _ in range(COUL_WARM - 1)]
@@ -1917,7 +1922,7 @@ def rank_main_path(mesh, device) -> dict:
     flight.flight_step = captured_step
     driver.fp_step = counted_fp
     try:
-        reset_launches()
+        flight.reset_launch_counts()
         outs = [sim.step() for _ in range(P9_WARM)]
         captured["armed"] = True
         torch.cuda.synchronize()
@@ -1930,9 +1935,7 @@ def rank_main_path(mesh, device) -> dict:
     finally:
         flight.flight_step = kernel_step
         driver.fp_step = fp_step
-    launches = dict(inline=flight.LAUNCHES, strat=flight.STRAT_LAUNCHES,
-                    pair=flight.PAIR_LAUNCHES, window=flight.WINDOW_LAUNCHES,
-                    global_tables=flight.GLOBAL_LAUNCHES)
+    launches = flight.launch_counts()
     steps = []
     for out in outs:
         sim.last_outputs = out
@@ -2143,12 +2146,18 @@ def phase_ranks(device, card: str) -> Tuple[int, dict]:
 # ---------------------------------------------------------------------------
 def gate_launches_ok(cell: str, plain_runs: int) -> bool:
     """The cell's flight-kernel mode only, and no plain-version run: B1
-    with shared tables (main_path), B2 (pair_corona), B4 (grid_40x30)."""
+    with shared tables (main_path), B2 (pair_corona), B2 with B3
+    (pair_corona_strat), B4 (grid_40x30)."""
     inline, pair = flight.LAUNCHES, flight.PAIR_LAUNCHES
     window, glob = flight.WINDOW_LAUNCHES, flight.GLOBAL_LAUNCHES
-    if plain_runs or flight.STRAT_LAUNCHES or inline <= 0:
-        return False
+    strat = flight.STRAT_LAUNCHES
     mode = e2e_gate.CELL_MODE[cell]
+    if plain_runs:
+        return False
+    if mode == "B2+B3":
+        return strat > 0 and pair == strat and inline == window == glob == 0
+    if strat or inline <= 0:
+        return False
     if mode == "B1":
         return pair == window == glob == 0
     if mode == "B2":
@@ -2156,11 +2165,11 @@ def gate_launches_ok(cell: str, plain_runs: int) -> bool:
     return window == inline == glob and pair == 0
 
 
-def phase_gate(device, card: str) -> dict:
+def phase_gate(device, card: str) -> Tuple[dict, dict]:
     """Each cell of the committed reference JSON: the port's config equal
     to the recorded one field for field, K seeds of the recorded statistic
     on the card, e2e_gate.gate against the reference's replicates; returns
-    the launches of each cell."""
+    the launches of each cell and its gate dict."""
     ref = e2e_gate.load_reference()
     plain_runs = [0]
     reference = flight.flight_step_reference
@@ -2169,7 +2178,7 @@ def phase_gate(device, card: str) -> dict:
         plain_runs[0] += 1
         return reference(*a, **k)
 
-    launches = {}
+    launches, results = {}, {}
     flight.flight_step_reference = counted_reference
     try:
         for cell in e2e_gate.CELLS:
@@ -2180,15 +2189,12 @@ def phase_gate(device, card: str) -> dict:
             if bad:
                 raise AssertionError(f"gate {cell}: config differs from the "
                                      f"reference's in {bad}")
-            state0 = sim.state
             k = len(rc["seeds"])
             plain_runs[0] = 0
-            reset_launches()
+            flight.reset_launch_counts()
             torch.cuda.synchronize()
             t1 = time.perf_counter()
-            reps = [e2e_gate.replicate_channels(
-                sim, state0, e2e_gate.PORT_SEED + 13 * i, rc["steps"],
-                rc["tally_from"]) for i in range(k)]
+            reps = e2e_gate.port_replicates(sim, rc)
             torch.cuda.synchronize()
             run_s = time.perf_counter() - t1
             if not gate_launches_ok(cell, plain_runs[0]):
@@ -2197,8 +2203,10 @@ def phase_gate(device, card: str) -> dict:
                     f"{flight.PAIR_LAUNCHES} windowed {flight.WINDOW_LAUNCHES}"
                     f" global-table {flight.GLOBAL_LAUNCHES} strat "
                     f"{flight.STRAT_LAUNCHES} plain {plain_runs[0]}")
-            launches[cell] = flight.LAUNCHES
-            res = e2e_gate.gate(reps, rc)
+            launches[cell] = (flight.STRAT_LAUNCHES
+                              if e2e_gate.CELL_MODE[cell] == "B2+B3"
+                              else flight.LAUNCHES)
+            res = results[cell] = e2e_gate.gate(reps, rc)
             full = e2e_gate.gate(reps, rc, ndigits=None)
             for q, dev in full["rel_dev"].items():
                 fl = full["noise_floor"][q]
@@ -2244,17 +2252,96 @@ def phase_gate(device, card: str) -> dict:
                     f"z {z[j, i]:.3f}")
             if not res["passed"]:
                 raise AssertionError(f"gate {cell} failed: {res}")
-            del sim, state0, reps
+            del sim, reps
     finally:
         flight.flight_step_reference = reference
-    return launches
+    return launches, results
+
+
+# ---------------------------------------------------------------------------
+# phase 11: the port's two root entry points (bench, dry run)
+# ---------------------------------------------------------------------------
+BENCH_TIMEOUT = 900.0
+BENCH_KEYS = ("metric", "value", "unit", "tracking_rounds_per_step",
+              "step_hbm_model_pct_of_peak", "mrk421_histories_per_s",
+              "pallas_e2e", "pallas_e2e_strat", "device")
+
+
+def check_bench(card: str, gates: dict) -> dict:
+    """``python -m compton2d_tpu_torch.bench`` in a process of its own at
+    the default size: its last line one record with bench.py's keys, a
+    positive rate, the main path's B1 launches, and both gate records
+    passed and equal to phase 10's gates of the same cells (the same
+    seeds, so the same replicates)."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "compton2d_tpu_torch.bench"],
+        cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+        text=True, timeout=BENCH_TIMEOUT)
+    bench_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"bench exited {proc.returncode}:\n"
+                             f"{proc.stderr[-4000:]}")
+    rec = json.loads(proc.stdout.strip().splitlines()[-1])
+    log(f"bench record: {json.dumps(rec)}")
+    log(f"bench stderr: {proc.stderr.strip().splitlines()[-1]}; "
+        f"{bench_s:.2f} s for the process")
+    missing = [k for k in BENCH_KEYS if k not in rec]
+    if missing or "vs_baseline" in rec:
+        raise AssertionError(f"bench record keys: missing {missing}")
+    lc = rec["flight_launches"]
+    if not (rec["value"] > 0 and rec["mrk421_histories_per_s"] > 0
+            and lc["inline"] > 0 and lc["strat"] == lc["pair"]
+            == lc["window"] == lc["global_tables"] == 0):
+        raise AssertionError(f"bench: value {rec['value']}, launches {lc}")
+    if rec["device"] != card:
+        raise AssertionError(f"bench device {rec['device']!r}, card {card!r}")
+    for key, cell in bench.GATES.items():
+        g = rec[key]
+        if g.get("passed") is not True:
+            raise AssertionError(f"bench {key} ({cell}): {g}")
+        want = {k: gates[cell][k] for k in bench.GATE_KEYS}
+        if g != json.loads(json.dumps(want)):
+            raise AssertionError(f"bench {key} differs from phase 10's "
+                                 f"{cell}: {g} against {want}")
+    return rec
+
+
+def phase_entry_points(device, card: str, gates: dict) -> int:
+    """Phase 11: the bench as a user runs it, and dryrun_multichip(2) on
+    two gloo ranks sharing the card; returns the dry run's pair-mode
+    launches (both ranks and the one-rank run)."""
+    rec = check_bench(card, gates)
+    log(f"bench on {card}: {rec['value']:.6e} histories/s, "
+        f"{rec['tracking_rounds_per_step']} rounds/step, HBM model "
+        f"{rec['step_hbm_model_pct_of_peak']:.6e}% of the step, Mrk 421 "
+        f"{rec['mrk421_histories_per_s']:.6e} histories/s, gates passed "
+        f"(pair_corona, pair_corona_strat)")
+    flight.reset_launch_counts()
+    t0 = time.perf_counter()
+    dr = dryrun.dryrun_multichip(RANKS, device=device, backend="gloo")
+    dr_s = time.perf_counter() - t0
+    one = flight.launch_counts()
+    for lc in dr["launches"] + [one]:
+        if not (lc["pair"] > 0 and lc["pair"] == lc["inline"]
+                and lc["strat"] == lc["window"] == 0):
+            raise AssertionError(f"dry run launches {dr['launches']}, one "
+                                 f"rank {one}")
+    log(f"dryrun_multichip({RANKS}) on {card}: {json.dumps(dr)}")
+    log(f"dryrun_multichip({RANKS}): first-step budget {dr['bingo']!r} "
+        f"(1 rank {dr['bingo_one_rank']!r}), roulette rolled {dr['n_rr']} "
+        f"(1 rank {dr['n_rr_one_rank']}), event counts {dr['event_counts']}"
+        f" with {dr['events_dropped']} records dropped a rank (capacity "
+        f"{dr['capacity']}; 1 rank {dr['events_dropped_one_rank']}), "
+        f"z {dr['z']}; {dr_s:.2f} s")
+    return sum(lc["pair"] for lc in dr["launches"]) + one["pair"]
 
 
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    card = card_line()
+    card = bench.card_line("cuda")
     log(card)   # name, power limit: nvidia-smi's own line
     log(f"python {sys.version.split()[0]} torch {torch.__version__} "
         f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)} "
@@ -2288,7 +2375,8 @@ def main() -> int:
     log(f"Coulomb kernel entry: {json.dumps(k_prod)}")
     launches_ranks, k_ranks = phase_ranks(device, card)
     log(f"two-rank kernel entry: {json.dumps(k_ranks)}")
-    launches_gate = phase_gate(device, card)
+    launches_gate, gates = phase_gate(device, card)
+    launches_dryrun = phase_entry_points(device, card, gates)
 
     replaces = "compton2d_tpu/transport/flight_pallas2.py:347"
     log(json.dumps({"kernels": [
@@ -2305,11 +2393,14 @@ def main() -> int:
         {"name": "flight_kernel_pairs", "route": "cuda",
          "source": "compton2d_tpu_torch/csrc/flight.cu",
          "replaces": replaces,
-         "launches": launches_pairs + launches_gate["pair_corona"],
+         "launches": (launches_pairs + launches_gate["pair_corona"]
+                      + launches_dryrun),
          "library_ms": None, **k_pairs},
         {"name": "flight_kernel_pairs_strat", "route": "cuda",
          "source": "compton2d_tpu_torch/csrc/flight.cu",
-         "replaces": replaces, "launches": launches_pairs_strat,
+         "replaces": replaces,
+         "launches": (launches_pairs_strat
+                      + launches_gate["pair_corona_strat"]),
          "library_ms": None, **k_pairs_strat},
         {"name": "flight_kernel_windowed", "route": "cuda",
          "source": "compton2d_tpu_torch/csrc/flight.cu",

@@ -35,6 +35,7 @@ from pathlib import Path
 
 import torch
 
+from compton2d_tpu_torch.bench import card_line
 from compton2d_tpu_torch.transport import flight
 
 REPS = 20
@@ -114,7 +115,7 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("compare_flight: no CUDA device", file=sys.stderr)
         return 1
-    card = cs.card_line()
+    card = card_line("cuda")
     flight.build()
     flight._lib = _TimedLib(flight._lib)
     versions = [("package", flight)] + [

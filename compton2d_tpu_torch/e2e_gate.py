@@ -29,8 +29,15 @@ Cells (``CELLS``: ``small_corona``'s arguments):
   the flight kernel's B1 mode with its tables in shared memory;
 - ``pair_corona``: ``tools/pallas_e2e._build`` exactly (4x3 zones,
   262144 slots, nst 200000, pair_switch, a bounded tail gamma 3-20), B2;
+- ``pair_corona_strat``: ``tools/pallas_e2e._build(strat=True)``, the
+  pair corona with stratified tail splitting (``CELL_SOURCE``), B2 with
+  B3;
 - ``grid_40x30``: the reference's windowed-test grid at the main path's
   widths and slots, B4 after the zone sort.
+
+``small_corona``'s keywords reach only the physics configuration, so a
+cell's source settings stand apart, in ``CELL_SOURCE``, and
+``cell_config`` applies them.
 
 A *statistic* says what a replicate measures (``STATISTICS``): with
 ``census_rr_off`` the census roulette is off and the scalars are those
@@ -72,32 +79,42 @@ REF_SEED, PORT_SEED = 3, 3 + 977
 
 _BENCH = dict(num_nt=200, n_vol=400, nphfield=400, t_const=False,
               max_flight_iters=256, seed=0)
+_PAIRS = dict(nz=4, nr=3, nst=200000, n_slots=1 << 18, num_nt=100,
+              n_vol=128, nphfield=128, t_const=False, seed=0,
+              pair_switch=True, amxwl=0.5, gmin=3.0, gmax=20.0, p_nth=2.5)
 CELLS = {
     "main_path": dict(nz=8, nr=4, nst=60000, n_slots=1 << 17, **_BENCH),
-    "pair_corona": dict(
-        nz=4, nr=3, nst=200000, n_slots=1 << 18, num_nt=100, n_vol=128,
-        nphfield=128, t_const=False, seed=0, pair_switch=True, amxwl=0.5,
-        gmin=3.0, gmax=20.0, p_nth=2.5),
+    "pair_corona": _PAIRS,
+    "pair_corona_strat": _PAIRS,
     "grid_40x30": dict(nz=40, nr=30, nst=60000, n_slots=1 << 17, **_BENCH),
 }
+# SourceConfig fields a cell sets beside small_corona's: the tail
+# boundary sits inside the gamma <= 20 population, so the split fires
+CELL_SOURCE = {
+    "pair_corona_strat": dict(strat_split=True, strat_gamma_c=10.0,
+                              strat_p_max=0.5),
+}
 # the flight kernel's mode on each cell's path
-CELL_MODE = {"main_path": "B1", "pair_corona": "B2", "grid_40x30": "B4"}
+CELL_MODE = {"main_path": "B1", "pair_corona": "B2",
+             "pair_corona_strat": "B2+B3", "grid_40x30": "B4"}
 STATISTICS = ("census_rr_off", "post_transient")
 
 REFERENCE_JSON = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                               "data", "gate_reference.json")
 
 
-def cell_config(cfg, statistic: str):
+def cell_config(cfg, statistic: str, cell: Optional[str] = None):
     """``cfg`` under ``statistic``, with ``pallas_tracking="on"`` (the
     reference's Pallas kernel; the port has no other flight path and
-    ignores the field). Works on either package's SimConfig."""
+    ignores the field) and ``cell``'s ``CELL_SOURCE`` settings. Works on
+    either package's SimConfig."""
     if statistic not in STATISTICS:
         raise ValueError(f"unknown statistic {statistic!r}")
     run = dataclasses.replace(cfg.run, pallas_tracking="on")
     if statistic == "census_rr_off":
         run = dataclasses.replace(run, census_rr=False)
-    return dataclasses.replace(cfg, run=run)
+    source = dataclasses.replace(cfg.source, **CELL_SOURCE.get(cell, {}))
+    return dataclasses.replace(cfg, run=run, source=source)
 
 
 def _plain(v):
@@ -128,7 +145,7 @@ def config_record(sim) -> dict:
 def build_cell(cell: str, statistic: str, device="cuda"):
     """The port's Simulation of ``cell`` under ``statistic``."""
     sim = small_corona(**CELLS[cell], device=device)
-    return sim.with_config(cell_config(sim.cfg, statistic))
+    return sim.with_config(cell_config(sim.cfg, statistic, cell))
 
 
 def _fresh(obj):
@@ -159,6 +176,16 @@ def replicate_channels(sim, state0, seed: int, steps: int,
             f = out.tallies.fout.cpu().numpy()
             fout = f if fout is None else fout + f
     return channels(sim, fout, balances)
+
+
+def port_replicates(sim, ref: dict) -> list:
+    """The port's side of a gate cell: from ``sim``'s state, one replicate
+    (:func:`replicate_channels`) a seed of the reference cell ``ref``,
+    each of its recorded steps."""
+    state0 = sim.state
+    return [replicate_channels(sim, state0, PORT_SEED + 13 * i,
+                               ref["steps"], ref["tally_from"])
+            for i in range(len(ref["seeds"]))]
 
 
 def channels(sim, fout: np.ndarray, balances: list) -> dict:

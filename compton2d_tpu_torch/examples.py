@@ -1,6 +1,8 @@
 """Ready-made configurations (counterpart of ``compton2d_tpu.examples``)."""
 from __future__ import annotations
 
+from typing import Tuple
+
 from compton2d_tpu_torch.config import (
     GridConfig,
     InjectionConfig,
@@ -14,7 +16,17 @@ from compton2d_tpu_torch.config import (
 from compton2d_tpu_torch.driver import Simulation
 
 
-def small_corona(
+def small_corona(device="cuda", mesh=None, **kw) -> Simulation:
+    """A small 2-D accreting corona: a hot thermal electron cloud above a
+    cool blackbody disk (the lower boundary). Same configuration as the
+    reference's ``small_corona``, built on ``device`` (on a photon
+    ``mesh``, this rank's share of it); ``kw`` are
+    :func:`corona_config`'s."""
+    cfg, zi = corona_config(**kw)
+    return Simulation(cfg, zi, device=device, mesh=mesh)
+
+
+def corona_config(
     nz: int = 4,
     nr: int = 3,
     nst: int = 2000,
@@ -32,14 +44,10 @@ def small_corona(
     gmin: float = 1.0e3,
     gmax: float = 1.0e5,
     p_nth: float = 2.5,
-    device="cuda",
-    mesh=None,
     **phys_kw,
-) -> Simulation:
-    """A small 2-D accreting corona: a hot thermal electron cloud above a
-    cool blackbody disk (the lower boundary). Same configuration as the
-    reference's ``small_corona``, built on ``device`` (on a photon
-    ``mesh``, this rank's share of it)."""
+) -> Tuple[SimConfig, ZoneInit]:
+    """:func:`small_corona`'s configuration and zone initialisation, with
+    no Simulation built."""
     grid = GridConfig(
         nz=nz, nr=nr, z_max=1.0e15, r_max=1.0e15,
         num_nt=num_nt, n_vol=n_vol, nphfield=nphfield,
@@ -67,7 +75,7 @@ def small_corona(
         grid, tea=tea, tna=tea, n_e=n_e, B_field=10.0, amxwl=amxwl,
         gmin=gmin, gmax=gmax, p_nth=p_nth,
     )
-    return Simulation(cfg, zi, device=device, mesh=mesh)
+    return cfg, zi
 
 
 def blazar_jet(

@@ -42,12 +42,12 @@ from __future__ import annotations
 import argparse
 import collections
 import json
-import subprocess
 import time
 
 import torch
 
 from compton2d_tpu_torch import decks, driver, run_mrk421
+from compton2d_tpu_torch.bench import card_line
 from compton2d_tpu_torch.examples import small_corona
 from compton2d_tpu_torch.physics import pairs
 from compton2d_tpu_torch.transport import flight, tracking
@@ -175,10 +175,7 @@ def main(argv=None):
     finally:
         for mod, name, fn in originals:
             setattr(mod, name, fn)
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
+    card = card_line(device)
     print(json.dumps({
         "config": args.config, "card": card, "steps": n,
         "ms_per_step": 1e3 * wall / n,

@@ -88,6 +88,20 @@ WINDOW_LAUNCHES = 0
 # table_placement)
 GLOBAL_LAUNCHES = 0
 
+
+def launch_counts() -> dict:
+    """The launch counts above, by mode."""
+    return dict(inline=LAUNCHES, strat=STRAT_LAUNCHES, pair=PAIR_LAUNCHES,
+                window=WINDOW_LAUNCHES, global_tables=GLOBAL_LAUNCHES)
+
+
+def reset_launch_counts() -> None:
+    """Set every launch count to 0."""
+    global LAUNCHES, STRAT_LAUNCHES, PAIR_LAUNCHES, WINDOW_LAUNCHES
+    global GLOBAL_LAUNCHES
+    LAUNCHES = STRAT_LAUNCHES = PAIR_LAUNCHES = WINDOW_LAUNCHES = 0
+    GLOBAL_LAUNCHES = 0
+
 _SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "flight.cu"
 _BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 NVCC_FLAGS = (

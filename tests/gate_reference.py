@@ -77,7 +77,7 @@ def patch_repairs():
 
 def build(cell: str, statistic: str):
     sim = jex.small_corona(**e2e_gate.CELLS[cell])
-    return sim.with_config(e2e_gate.cell_config(sim.cfg, statistic))
+    return sim.with_config(e2e_gate.cell_config(sim.cfg, statistic, cell))
 
 
 def run_seed(sim, state0, seed: int, steps: int, tally_from: int) -> dict:

@@ -121,13 +121,20 @@ def test_cell_config_matches_jax_config_and_json(cell):
     stat = ref["statistic"]
     psim = e2e_gate.build_cell(cell, stat, "cpu")
     jsim = jex.small_corona(**e2e_gate.CELLS[cell])
-    jsim = jsim.with_config(e2e_gate.cell_config(jsim.cfg, stat))
+    jsim = jsim.with_config(e2e_gate.cell_config(jsim.cfg, stat, cell))
     assert e2e_gate.config_record(psim) == e2e_gate.config_record(jsim)
     assert e2e_gate.check_config(psim, ref) == []
-    if cell == "pair_corona":
-        built = _pallas_e2e()._build("on", 200000, True, False)
+    if cell in ("pair_corona", "pair_corona_strat"):
+        strat = cell == "pair_corona_strat"
+        built = _pallas_e2e()._build("on", 200000, True, strat)
         assert (dataclasses.asdict(e2e_gate.cell_config(built.cfg, stat))
                 == dataclasses.asdict(jsim.cfg))
+        for sim in (psim, jsim, built):
+            assert sim.cfg.source.strat_split is strat
+        if strat:
+            src = ref["config"]["source"]
+            assert (src["strat_split"], src["strat_gamma_c"],
+                    src["strat_p_max"]) == (True, 10.0, 0.5)
     # the check sees a changed field
     other = psim.with_config(dataclasses.replace(
         psim.cfg, source=dataclasses.replace(psim.cfg.source, nst=1)))
@@ -281,3 +288,43 @@ def test_gate_zones_compare():
     assert rows[(1, 0)]["upper_te"]["fisher_p"] < 1e-3
     assert not rows[(1, 0)]["te"]["pass"]
     assert rows[(0, 1)]["edep"]["pass"] and rows[(0, 1)]["te"]["pass"]
+
+
+def _strat_replicate(seed: int, calls: list) -> dict:
+    """A replicate of the strat pair cell's configuration at a small size
+    on the CPU: 2 steps, the spectrum of the last."""
+    sim = pex.small_corona(nz=2, nr=2, nst=400, n_slots=2048, num_nt=40,
+                           n_vol=32, nphfield=32, t_const=False, seed=0,
+                           pair_switch=True, amxwl=0.5, gmin=3.0, gmax=20.0,
+                           p_nth=2.5, device="cpu")
+    sim = sim.with_config(e2e_gate.cell_config(
+        sim.cfg, "post_transient", "pair_corona_strat"))
+    assert sim.cfg.source.strat_split
+    n0 = len(calls)
+    rep = e2e_gate.replicate_channels(sim, sim.state, seed, 2, 1)
+    assert len(calls) > n0   # the strat path's scatter pass ran
+    return rep
+
+
+def test_strat_replicates_reseed_their_streams(monkeypatch):
+    """The strat copies draw from per-round generators seeded from the
+    step's generator: a replicate of the strat pair cell repeats bitwise
+    under one seed and differs under another."""
+    from compton2d_tpu_torch.transport import tracking
+
+    calls, apply_scatter = [], tracking.apply_scatter
+
+    def counted(*a, **k):
+        calls.append(1)
+        return apply_scatter(*a, **k)
+
+    monkeypatch.setattr(tracking, "apply_scatter", counted)
+    a, b, c = (_strat_replicate(s, calls) for s in (5, 5, 6))
+    keys = ("escaped", "census", "edep_total", "scatter_gain", "pair_abs",
+            "te_mean", "balance_worst")
+    assert all(a[q] == b[q] for q in keys)
+    np.testing.assert_array_equal(a["te"], b["te"])
+    np.testing.assert_array_equal(a["fout"], b["fout"])
+    assert a["finite"] and c["finite"]
+    assert [a[q] for q in keys[:4]] != [c[q] for q in keys[:4]]
+    assert not np.array_equal(a["fout"], c["fout"])

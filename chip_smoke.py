@@ -175,7 +175,30 @@ Phases (any failure raises and the script exits non-zero):
    first step's budget to rtol 1e-6, the roulette fired, every audit
    within 5e-3, the census within 0.5x-2x, one event count a rank with
    its dropped records counted), and the 1-vs-2-rank z-test over 5 seeds
-   a side at the tiny shapes (z < 4), with pair-mode launches only.
+   a side at the tiny shapes (z < 4), with pair-mode launches only;
+12. the lock-step flight loop (``pallas_tracking`` "off", grids with an
+   edge above 127, slot counts off the 1024 tile): (a) the main path on
+   the loop and on the kernel in turns, 2 warm-up and 4 timed steps each:
+   every step's audit within 2e-3 (phase 3's bound; both trackers read
+   |balance - 1| up to 2.1e-4 here), its tracking iterations (rounds on the
+   kernel), stragglers and ms, the loop with no kernel launch and the
+   kernel with B1 launches only, and each tracker's ms/step and
+   transport_step ms/step; (b) the ``tracker_main`` gate
+   (``e2e_gate.tracker_gate``: ``tools/pallas_e2e.py``'s comparison of
+   the kernel against the loop on ``main_path``, 12 seeds a side, the last
+   of 4 steps with the roulette kept, z < 4), which must pass; (c)
+   ``small_corona`` at 128x128 zones (nst 240000, 524288 slots, the main
+   path's widths) under "auto": the loop, no zone sort, 1 warm-up and 2
+   timed steps with their audit, iterations and stragglers, the card's
+   peak memory and the step split into volume_em, fp_step and
+   transport_step; and "on" refusing that grid (NotImplementedError); (d)
+   the main path at 130000 slots under "auto": 2 steps on the loop with
+   their audit.
+
+From phase 2 to phase 11 every Simulation built in this process (and in
+phase 9's ranks) and every step it takes must select the flight kernel
+(``kernel_only``), and the bench's record and the dry run name the
+kernel as their tracker: no earlier path drifts onto the loop.
 
 The first five phases' launches of the path-shaped modes read their
 tables from shared memory (checked with the wrapper's count of
@@ -189,8 +212,10 @@ entry too, as phase 10's main_path launches do; phase 10's pair_corona
 launches count in the pair entry, its pair_corona_strat launches in
 the strat pair entry and its grid_40x30 launches in the windowed entry;
 phase 11's dry-run launches (pair mode, in the ranks and in this
-process) count in the pair entry. The bench's launches are its own
-process's, read from its record and not counted in the line.
+process) count in the pair entry; phase 12's kernel-side main path and
+its tracker_main gate count in the 8x4 entry. The loop is no kernel: it
+runs as PyTorch operations. The bench's launches are its own process's,
+read from its record and not counted in the line.
 
 Each kernel's wrapper counts its launches; the counts are set to 0 just
 before each main path and read just after. The line before the last is a
@@ -220,7 +245,7 @@ from compton2d_tpu_torch import (bench, collectives, decks, driver, dryrun,
                                  e2e_gate, obs_compare, roofline, run_mrk421)
 from compton2d_tpu_torch.config import RunConfig
 from compton2d_tpu_torch.constants import SIGMA_THOMSON
-from compton2d_tpu_torch.examples import small_corona
+from compton2d_tpu_torch.examples import corona_config, small_corona
 from compton2d_tpu_torch.io import checkpoint, native
 from compton2d_tpu_torch.parallel import distributed
 from compton2d_tpu_torch.physics import coulomb
@@ -2012,6 +2037,7 @@ def rank_resume(mesh, device, out_dir: str) -> dict:
 
 def phase9_rank(mesh, out_dir: str) -> dict:
     """One rank's part of phase 9 (run in a process of its own)."""
+    kernel_only()
     device = mesh.device
     torch.cuda.set_device(device)
     main = rank_main_path(mesh, device)
@@ -2296,6 +2322,8 @@ def check_bench(card: str, gates: dict) -> dict:
         raise AssertionError(f"bench: value {rec['value']}, launches {lc}")
     if rec["device"] != card:
         raise AssertionError(f"bench device {rec['device']!r}, card {card!r}")
+    if rec["tracker"] != "kernel":
+        raise AssertionError(f"bench tracker {rec['tracker']!r}")
     for key, cell in bench.GATES.items():
         g = rec[key]
         if g.get("passed") is not True:
@@ -2322,6 +2350,8 @@ def phase_entry_points(device, card: str, gates: dict) -> int:
     dr = dryrun.dryrun_multichip(RANKS, device=device, backend="gloo")
     dr_s = time.perf_counter() - t0
     one = flight.launch_counts()
+    if dr["trackers"] != ["kernel"] * (RANKS + 1):
+        raise AssertionError(f"dry run trackers {dr['trackers']}")
     for lc in dr["launches"] + [one]:
         if not (lc["pair"] > 0 and lc["pair"] == lc["inline"]
                 and lc["strat"] == lc["window"] == 0):
@@ -2335,6 +2365,265 @@ def phase_entry_points(device, card: str, gates: dict) -> int:
         f"{dr['capacity']}; 1 rank {dr['events_dropped_one_rank']}), "
         f"z {dr['z']}; {dr_s:.2f} s")
     return sum(lc["pair"] for lc in dr["launches"]) + one["pair"]
+
+
+# ---------------------------------------------------------------------------
+# phase 12: the lock-step flight loop
+# ---------------------------------------------------------------------------
+LOOP_WARM, LOOP_TIMED = 2, 4
+# a grid the kernel refuses (an edge above flight.MAX_EDGE) at the main
+# path's widths, and the main path at slots off the 1024 tile
+HUGE_NZ, HUGE_NR, HUGE_SLOTS, HUGE_NST = 128, 128, 524288, 240000
+HUGE_WARM, HUGE_TIMED = 1, 2
+ODD_SLOTS, ODD_STEPS = 130000, 2
+
+
+def kernel_only():
+    """From here on every Simulation this process builds, and every step
+    it takes, must select the flight kernel (``driver.select_tracker``
+    raises otherwise): no earlier phase's path can drift onto the loop.
+    Returns the unguarded selection, for :func:`phase_loop`."""
+    select = driver.select_tracker
+
+    def kernel_tracker(cfg, world=1):
+        tracker = select(cfg, world)
+        if tracker != "kernel":
+            raise AssertionError(f"the {tracker} tracker selected outside "
+                                 "phase 12")
+        return tracker
+
+    driver.select_tracker = kernel_tracker
+    return select
+
+
+class PhaseTimer:
+    """Card-synchronised wall time of driver functions (inclusive, as
+    ``profile_phases`` times them), summed over the calls while on."""
+
+    def __init__(self, names):
+        self.names, self.ms, self.on = names, {}, False
+        self.orig = {n: getattr(driver, n) for n in names}
+        for n in names:
+            setattr(driver, n, self._timed(n, self.orig[n]))
+
+    def _timed(self, name, fn):
+        def wrapped(*a, **k):
+            if not self.on:
+                return fn(*a, **k)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = fn(*a, **k)
+            torch.cuda.synchronize()
+            self.ms[name] = self.ms.get(name, 0.0) + 1e3 * (
+                time.perf_counter() - t0)
+            return res
+        return wrapped
+
+    def restore(self):
+        for n, fn in self.orig.items():
+            setattr(driver, n, fn)
+
+
+def loop_step_line(label: str, i: int, sim, out, ms: float,
+                   tol: float) -> dict:
+    """Log one step's audit, tracking iterations (or kernel rounds),
+    stragglers and ms, and check the audit within ``tol``, the escapes,
+    finite temperatures and the state on the card."""
+    sim.last_outputs = out
+    a = sim.energy_audit()
+    t = out.tallies
+    rec = dict(balance=a["balance"], rounds=int(t.trk_rounds),
+               stragglers=int(t.n_straggler), ms=ms,
+               tracked=int(out.n_tracked))
+    log(f"{label} step {i}: balance {a['balance']:.7f} escaped "
+        f"{a['escaped']:.4e} erg census {a['census']:.4e} erg "
+        f"{'iterations' if sim.tracker == 'loop' else 'rounds'} "
+        f"{rec['rounds']} stragglers {rec['stragglers']} tracked "
+        f"{rec['tracked']} {ms:.3f} ms")
+    if not abs(a["balance"] - 1.0) < tol:
+        raise AssertionError(f"{label} step {i}: audit {a['balance']}")
+    if not a["escaped"] > 0.0:
+        raise AssertionError(f"{label} step {i}: nothing escaped")
+    if not bool(torch.all(torch.isfinite(sim.state.zones.tea))):
+        raise AssertionError(f"{label} step {i}: non-finite temperatures")
+    if state_devices(sim.state) != {"cuda"}:
+        raise AssertionError(f"{label}: state tensors left the card")
+    return rec
+
+
+def mean_of(recs: list, key: str) -> float:
+    return sum(r[key] for r in recs) / len(recs)
+
+
+def phase_loop(device, card: str, select) -> int:
+    """Phase 12: (a) the main path on the loop ("off") and on the kernel
+    in turns, 2 warm and 4 timed steps each; (b) the tracker_main gate,
+    the kernel against the loop (e2e_gate.tracker_gate, 12 seeds a side);
+    (c) a 128x128 grid at the main path's widths under "auto" on the
+    loop, with no zone sort, its peak memory and its step split into
+    volume_em, fp_step and transport_step, and "on" refusing it; (d) the
+    main path at 130000 slots under "auto" on the loop. ``select`` is the
+    unguarded tracker selection. Returns the B1 launches of (a) and
+    (b)."""
+    driver.select_tracker = select
+    zone_sorts = [0]
+    zone_sort = driver.zone_sort
+
+    def counted_sort(*a, **k):
+        zone_sorts[0] += 1
+        return zone_sort(*a, **k)
+
+    timer = PhaseTimer(("volume_em", "fp_step", "transport_step"))
+    driver.zone_sort = counted_sort
+    try:
+        # (a) the main path on each tracker, in turns
+        kern = bench_sim(device)
+        loop = kern.with_config(dataclasses.replace(
+            kern.cfg, run=dataclasses.replace(kern.cfg.run,
+                                              pallas_tracking="off")))
+        if (kern.tracker, loop.tracker) != ("kernel", "loop"):
+            raise AssertionError(f"trackers {kern.tracker}, {loop.tracker}")
+        recs = {"kernel": [], "loop": []}
+        b1 = 0
+        for i in range(LOOP_WARM + LOOP_TIMED):
+            order = (kern, loop) if i % 2 == 0 else (loop, kern)
+            for sim in order:
+                timer.ms.clear()
+                timer.on = True
+                flight.reset_launch_counts()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = sim.step()
+                torch.cuda.synchronize()
+                ms = 1e3 * (time.perf_counter() - t0)
+                timer.on = False
+                lc = flight.launch_counts()
+                if sim.tracker == "loop" and any(lc.values()):
+                    raise AssertionError(f"the loop launched the kernel: {lc}")
+                if sim.tracker == "kernel" and not (
+                        lc["inline"] > 0 and lc["strat"] == lc["pair"]
+                        == lc["window"] == lc["global_tables"] == 0):
+                    raise AssertionError(f"main path kernel launches {lc}")
+                b1 += lc["inline"]
+                rec = loop_step_line(f"phase 12 main path ({sim.tracker})",
+                                     i, sim, out, ms, AUDIT_TOL)
+                rec["transport_ms"] = timer.ms["transport_step"]
+                if i >= LOOP_WARM:
+                    recs[sim.tracker].append(rec)
+        for name, rs in recs.items():
+            log(f"phase 12 main path on the {name} tracker on {card}: "
+                f"{mean_of(rs, 'ms'):.3f} ms/step, transport_step "
+                f"{mean_of(rs, 'transport_ms'):.3f} ms/step, "
+                f"{mean_of(rs, 'tracked') / (mean_of(rs, 'ms') / 1e3):.6e} "
+                f"histories/s, {mean_of(rs, 'rounds'):.2f} "
+                f"{'iterations' if name == 'loop' else 'rounds'}/step, "
+                f"{mean_of(rs, 'stragglers'):.1f} stragglers/step "
+                f"({LOOP_TIMED} timed steps after {LOOP_WARM} warm-up, in "
+                f"turns; the card synchronised around transport_step)")
+        del kern, loop
+
+        # (b) the tracker_main gate: the kernel against the loop
+        flight.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = e2e_gate.tracker_gate(device)
+        gate_s = time.perf_counter() - t0
+        lc = flight.launch_counts()
+        if not (lc["inline"] > 0 and lc["strat"] == lc["pair"]
+                == lc["window"] == lc["global_tables"] == 0):
+            raise AssertionError(f"tracker_main launches {lc}")
+        b1 += lc["inline"]
+        g = res["gate"]
+        for q, dev in g["rel_dev"].items():
+            fl = g["noise_floor"][q]
+            z = f"{dev / fl:.3f}" if fl > 0 else "n/a (floor 0)"
+            log(f"gate tracker_main {q}: rel_dev {dev:.6e} noise_floor "
+                f"{fl:.6e} z {z}")
+        log(f"gate tracker_main (main_path, kernel against loop, "
+            f"{g['n_seeds']} seeds a side, statistic {res['statistic']}, "
+            f"every scalar floor at or below {e2e_gate.FLOOR_TARGET}: "
+            f"{res['floors_ok']}) on {card}: checks {g['checks']}, mean Te "
+            f"kernel {res['te_mean']['kernel']:.4f} loop "
+            f"{res['te_mean']['loop']:.4f} keV, worst |balance - 1| kernel "
+            f"{g['balance_pallas_worst']:.3e} loop "
+            f"{g['balance_xla_worst']:.3e}; {lc['inline']} B1 launches; "
+            f"{gate_s:.2f} s")
+        if not (g["passed"] and res["trackers"] == {"kernel": "kernel",
+                                                    "loop": "loop"}
+                and res["statistic"] == (e2e_gate.TRACKER_STATISTIC,
+                                         e2e_gate.TRACKER_STEPS)):
+            raise AssertionError(f"gate tracker_main failed: {res}")
+
+        # (c) a grid the kernel refuses, on the loop
+        on, zi = corona_config(nz=HUGE_NZ, nr=HUGE_NR, nst=HUGE_NST,
+                               n_slots=HUGE_SLOTS, num_nt=NUM_NT,
+                               n_vol=N_VOL, nphfield=400, t_const=False)
+        on = dataclasses.replace(on, run=dataclasses.replace(
+            on.run, pallas_tracking="on"))
+        try:
+            driver.Simulation(on, zi, device=device)
+        except NotImplementedError as e:
+            log(f"phase 12: pallas_tracking 'on' at {HUGE_NZ}x{HUGE_NR} "
+                f"refused: {e}")
+        else:
+            raise AssertionError("'on' accepted a 128-zone edge")
+        flight.reset_launch_counts()
+        zone_sorts[0] = 0
+        torch.cuda.reset_peak_memory_stats(device)
+        sim = bench_sim(device, nz=HUGE_NZ, nr=HUGE_NR, nst=HUGE_NST,
+                        n_slots=HUGE_SLOTS)
+        if sim.tracker != "loop":
+            raise AssertionError(f"{HUGE_NZ}x{HUGE_NR} on {sim.tracker}")
+        recs, split = [], {}
+        for i in range(HUGE_WARM + HUGE_TIMED):
+            timer.ms.clear()
+            timer.on = i >= HUGE_WARM
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = sim.step()
+            torch.cuda.synchronize()
+            ms = 1e3 * (time.perf_counter() - t0)
+            timer.on = False
+            rec = loop_step_line(f"phase 12 {HUGE_NZ}x{HUGE_NR}", i, sim,
+                                 out, ms, AUDIT_TOL)
+            if i >= HUGE_WARM:
+                recs.append(rec)
+                for n, v in timer.ms.items():
+                    split[n] = split.get(n, 0.0) + v / HUGE_TIMED
+        peak = torch.cuda.max_memory_allocated(device)
+        if any(flight.launch_counts().values()) or zone_sorts[0]:
+            raise AssertionError(f"{HUGE_NZ}x{HUGE_NR}: launches "
+                                 f"{flight.launch_counts()}, zone sorts "
+                                 f"{zone_sorts[0]}")
+        log(f"phase 12 {HUGE_NZ}x{HUGE_NR} (nst {HUGE_NST}, {HUGE_SLOTS} "
+            f"slots, 'auto': the loop, no zone sort) on {card}: "
+            f"{mean_of(recs, 'ms'):.3f} ms/step (the card synchronised "
+            f"around each timed phase): volume_em {split['volume_em']:.3f}, "
+            f"fp_step {split['fp_step']:.3f}, transport_step "
+            f"{split['transport_step']:.3f} ms/step; "
+            f"{mean_of(recs, 'rounds'):.2f} iterations/step, "
+            f"{mean_of(recs, 'stragglers'):.1f} stragglers/step; peak "
+            f"memory {peak} bytes ({HUGE_TIMED} timed steps after "
+            f"{HUGE_WARM} warm-up)")
+        del sim, out
+
+        # (d) the main path at slots off the tile
+        sim = bench_sim(device, n_slots=ODD_SLOTS)
+        if sim.tracker != "loop":
+            raise AssertionError(f"{ODD_SLOTS} slots on {sim.tracker}")
+        for i in range(ODD_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = sim.step()
+            torch.cuda.synchronize()
+            loop_step_line(f"phase 12 main path at {ODD_SLOTS} slots", i,
+                           sim, out, 1e3 * (time.perf_counter() - t0),
+                           AUDIT_TOL)
+        if any(flight.launch_counts().values()):
+            raise AssertionError(f"{ODD_SLOTS} slots launched the kernel")
+    finally:
+        timer.restore()
+        driver.zone_sort = zone_sort
+    return b1
 
 
 def main() -> int:
@@ -2352,6 +2641,7 @@ def main() -> int:
 
     device = torch.device("cuda", 0)
     torch.cuda.set_device(device)
+    select = kernel_only()
     k_inline = phase_kernel(device, "kernel", NZ, NR, True, 256)
     k_strat = phase_kernel(device, "strat kernel", MRK_NZ, MRK_NR, False,
                            512)
@@ -2377,6 +2667,7 @@ def main() -> int:
     log(f"two-rank kernel entry: {json.dumps(k_ranks)}")
     launches_gate, gates = phase_gate(device, card)
     launches_dryrun = phase_entry_points(device, card, gates)
+    launches_loop_phase = phase_loop(device, card, select)
 
     replaces = "compton2d_tpu/transport/flight_pallas2.py:347"
     log(json.dumps({"kernels": [
@@ -2384,7 +2675,8 @@ def main() -> int:
          "source": "compton2d_tpu_torch/csrc/flight.cu",
          "replaces": replaces,
          "launches": (launches_inline + launches_disk + launches_prod
-                      + launches_ranks + launches_gate["main_path"]),
+                      + launches_ranks + launches_gate["main_path"]
+                      + launches_loop_phase),
          "library_ms": None, **k_inline},
         {"name": "flight_kernel_strat", "route": "cuda",
          "source": "compton2d_tpu_torch/csrc/flight.cu",

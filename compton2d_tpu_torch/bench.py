@@ -30,7 +30,8 @@ recorded number, which says nothing of this card)::
   them.
 
 The record also holds the timed steps, seconds and histories, the bytes
-of a round and the flight kernel's launches of the main path by mode.
+of a round, the flight kernel's launches of the main path by mode and
+the tracker it ran (``Simulation.tracker``).
 The same environment variables as ``bench.py`` choose the run:
 ``BENCH_SIZE`` (``small``, ``large`` or ``full``, the default),
 ``BENCH_STEPS`` (timed steps; 16, and 3 at ``small``), ``BENCH_TCONST``,
@@ -170,6 +171,7 @@ def run(s: dict, device="cuda") -> dict:
         "size": s["size"], "steps": s["steps"], "measure_s": dt,
         "histories": histories, "rounds": rounds, "round_bytes": rb,
         "first_step_s": first_s, "flight_launches": flight.launch_counts(),
+        "tracker": sim.tracker,
     }
     if s["mrk421"]:
         sim2 = mrk421(**MRK421, device=device)

@@ -3,8 +3,8 @@
 
 One step runs the reference's phase order on one device: census clock
 reset, zone pass (B field, emissivities, budget), census roulette, the
-zone sort of the census (grids above 1024 zones), the pair fields from
-the census (pair_switch), emission, tracking through the flight kernel,
+zone sort of the census (grids above 1024 zones on the flight kernel),
+the pair fields from the census (pair_switch), emission, tracking,
 census tallies, the Fokker-Planck electron (and positron) update (with a
 coronal flare's boost of the zones it sees, and the Coulomb drift under
 ``fp_include_coulomb``) and the time advance. dt is constant, as in the
@@ -15,8 +15,9 @@ The port covers the reference's options: thermal and file-spectrum
 boundaries with their time windows, Compton reflection (cr_sent 1-4),
 synchrotron volume emission and shock injection, census roulette,
 stratified tail splitting, gamma-gamma pair physics, coronal flares,
-adaptive dt and the Coulomb FP drift. ``Simulation`` raises
-``NotImplementedError`` for grid edges above 127 zones.
+adaptive dt and the Coulomb FP drift. Tracking runs on the flight
+kernel or on the lock-step loop, as ``run.pallas_tracking`` selects
+(:func:`select_tracker`); ``Simulation.tracker`` says which.
 
 Under a photon mesh (``parallel.mesh``: one process a rank) each rank
 owns ``n_slots / world`` slots, sources ``nst / world`` photons a step
@@ -250,15 +251,45 @@ def _estimate_energy_scale(cfg: SimConfig, zone_init: ZoneInit) -> float:
     return max(bb, flux * area * dt0, sy, inj, 1.0) / 1e6
 
 
+def select_tracker(cfg: SimConfig, world: int = 1) -> str:
+    """The tracker of ``cfg`` on ``world`` ranks (the JAX driver's rule,
+    compton2d_tpu/driver.py:1066-1082, with the card in the TPU's place):
+    ``pallas_tracking`` "on" takes the flight kernel, "off" the lock-step
+    loop, and "auto" the kernel when both grid edges are at most
+    flight.MAX_EDGE and each rank's slots are whole flight.TILE tiles,
+    else the loop. The JAX rule also asks for a TPU backend, so the JAX
+    package takes its loop on every other backend; here the rule is the
+    same on the CPU (where the kernel's plain version runs) as on the
+    card."""
+    run, g = cfg.run, cfg.grid
+    if run.pallas_tracking == "on":
+        return "kernel"
+    if run.pallas_tracking == "off":
+        return "loop"
+    if run.pallas_tracking != "auto":
+        raise ValueError(f"pallas_tracking={run.pallas_tracking!r} is not "
+                         "'auto', 'on' or 'off'")
+    fits = (g.nz <= flight.MAX_EDGE and g.nr <= flight.MAX_EDGE
+            and (run.n_slots // world) % flight.TILE == 0)
+    return "kernel" if fits else "loop"
+
+
 def check_slice(cfg: SimConfig, mesh: Optional[pmesh.PhotonMesh] = None
                 ) -> None:
-    """Raise NotImplementedError for options the port does not run, and
-    ValueError for slots that do not split into whole tiles per rank."""
-    flight.window_z(cfg.grid.nz, cfg.grid.nr)   # raises above 127 zones
+    """Raise ValueError for slots that do not split evenly over the ranks
+    and, when the flight kernel is selected, NotImplementedError for a
+    grid edge above flight.MAX_EDGE and ValueError for ranks' slots that
+    are not whole flight.TILE tiles."""
     world = 1 if mesh is None else mesh.world
-    if cfg.run.n_slots % (world * flight.TILE):
-        raise ValueError(f"n_slots={cfg.run.n_slots} must be a multiple of "
-                         f"{world} ranks x {flight.TILE}")
+    if cfg.run.n_slots % world:
+        raise ValueError(f"n_slots={cfg.run.n_slots} must split evenly "
+                         f"over {world} ranks")
+    if select_tracker(cfg, world) == "kernel":
+        flight.window_z(cfg.grid.nz, cfg.grid.nr)   # raises above 127
+        if cfg.run.n_slots % (world * flight.TILE):
+            raise ValueError(
+                f"n_slots={cfg.run.n_slots} must be a multiple of {world} "
+                f"ranks x {flight.TILE} on the flight kernel")
 
 
 class Simulation:
@@ -300,6 +331,8 @@ class Simulation:
         check_slice(cfg, mesh)
         self.cfg = cfg
         self.mesh = mesh
+        # "kernel" or "loop": the tracker every step runs (select_tracker)
+        self.tracker = select_tracker(cfg, 1 if mesh is None else mesh.world)
         self.device = torch.device(device)
         if mesh is not None:
             if self.device.type != mesh.device.type or self.device.index \
@@ -537,6 +570,7 @@ class Simulation:
             extras += f" sct_overflow={int(o.tallies.n_sct_overflow)}"
         if self.mesh is not None:
             extras += f" rank={self.mesh.rank}/{self.mesh.world}"
+        extras += f" tracker={self.tracker}"
         return (
             f"cycle={int(s.ncycle)} t={float(s.time):.4e}s "
             f"dt={float(s.dt):.3e}s census={alive} "
@@ -781,7 +815,8 @@ def _step_impl(state: SimState, src: sourcing.SourceStatic, grid: Grid,
     # the windowed mode gives each 1024-slot tile a 2*WIN_Z-zone window:
     # sort the census by zone bucket, dead slots last, so that emission
     # fills the free tail in zone order and the tiles stay zone-coherent
-    win_z = flight.window_z(nz, nr)
+    tracker = select_tracker(cfg, world)
+    win_z = flight.window_z(nz, nr) if tracker == "kernel" else 0
     if win_z:
         photons = zone_sort(photons, nz, nr, win_z)
 
@@ -862,7 +897,7 @@ def _step_impl(state: SimState, src: sourcing.SourceStatic, grid: Grid,
         pair_switch=bool(phys.pair_switch),
         strat_split=cfg.source.strat_split, strat_icut=strat_icut,
         strat_p_max=cfg.source.strat_p_max,
-        strat_copies=cfg.source.strat_copies,
+        strat_copies=cfg.source.strat_copies, tracker=tracker,
     )
     tallies = Tallies.zeros(nz, nr, g.num_nt, g.nphfield, g.n_gg, g.nmu,
                             g.nphtotal, g.nph_lc, device=dev)

@@ -104,7 +104,7 @@ def _run(sim: Simulation, steps: int = STEPS) -> dict:
                     "events_dropped"]),
                 capacity=int(out.events.data.shape[0]),
                 census=float(out.tallies.ecens.sum()),
-                slots=sim.state.photons.n_slots)
+                slots=sim.state.photons.n_slots, tracker=sim.tracker)
 
 
 def _z_channels(out) -> dict:
@@ -247,6 +247,7 @@ def dryrun_multichip(world: int, device="cuda", backend: str = "gloo",
         event_counts_one_rank=one["event_counts"],
         events_dropped_one_rank=one["events_dropped"],
         capacity=EVENT_CAPACITY, launches=[r["launches"] for r in ranks],
+        trackers=[r["tracker"] for r in ranks] + [one["tracker"]],
         build_s=[r["build_s"] for r in ranks], ranks_s=ranks_s,
         one_rank_s=one_s, z=zs, z_seeds=Z_SEEDS)
 

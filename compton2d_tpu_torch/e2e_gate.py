@@ -35,6 +35,13 @@ Cells (``CELLS``: ``small_corona``'s arguments):
 - ``grid_40x30``: the reference's windowed-test grid at the main path's
   widths and slots, B4 after the zone sort.
 
+``tracker_gate`` is ``tools/pallas_e2e.py``'s own comparison, the flight
+kernel against the lock-step loop, with both sides run by the port in one
+process (the ``tracker_main`` cell: ``main_path`` with
+``pallas_tracking`` "on" against "off"): the loop side takes the
+reference's place (pallas_e2e's "xla" side), its floors pass through
+``choose_statistic``, and no committed JSON is read.
+
 ``small_corona``'s keywords reach only the physics configuration, so a
 cell's source settings stand apart, in ``CELL_SOURCE``, and
 ``cell_config`` applies them.
@@ -105,9 +112,8 @@ REFERENCE_JSON = os.path.join(os.path.dirname(os.path.abspath(__file__)),
 
 def cell_config(cfg, statistic: str, cell: Optional[str] = None):
     """``cfg`` under ``statistic``, with ``pallas_tracking="on"`` (the
-    reference's Pallas kernel; the port has no other flight path and
-    ignores the field) and ``cell``'s ``CELL_SOURCE`` settings. Works on
-    either package's SimConfig."""
+    reference's Pallas kernel, the port's flight kernel) and ``cell``'s
+    ``CELL_SOURCE`` settings. Works on either package's SimConfig."""
     if statistic not in STATISTICS:
         raise ValueError(f"unknown statistic {statistic!r}")
     run = dataclasses.replace(cfg.run, pallas_tracking="on")
@@ -395,3 +401,70 @@ def check_config(sim, ref_cell: dict) -> list:
     theirs = _dotted({k: ref_cell[k] for k in ("config", "zone_init")})
     return [k for k in sorted(set(mine) | set(theirs))
             if mine.get(k, KeyError) != theirs.get(k, KeyError)]
+
+
+# the tracker_main cell: main_path's configuration and statistic, the
+# kernel against the loop
+TRACKER_CELL = "main_path"
+TRACKER_STATISTIC, TRACKER_STEPS = "post_transient", 4
+
+
+def side_record(sim, reps: list, seeds: list, statistic: str, steps: int,
+                tally_from: int) -> dict:
+    """One side's replicates (``replicate_channels``) in the layout of a
+    reference JSON cell, so that ``gate`` and ``ref_floors`` read it: the
+    configuration, the statistic, the replicates and the pooled spectrum,
+    with its floors."""
+    spec = pooled_spectra(reps)
+    rec = {
+        **config_record(sim),
+        "statistic": statistic, "steps": steps, "tally_from": tally_from,
+        "seeds": list(seeds),
+        "replicates": [{k: r[k] for k in ("finite", "balance_worst",
+                                          "src_lost", "te", *SCALARS)}
+                       for r in reps],
+        "spectrum": {"dtype": str(spec["pooled"].dtype), **spec},
+    }
+    rec["floors"] = ref_floors(rec)
+    return rec
+
+
+def tracker_gate(device="cuda", cell_kw: Optional[dict] = None,
+                 k: int = K_SEEDS, steps: int = TRACKER_STEPS) -> dict:
+    """``tools/pallas_e2e.py``'s comparison in the port: ``cell_kw``
+    (``small_corona``'s arguments; ``CELLS[TRACKER_CELL]`` by default)
+    under TRACKER_STATISTIC with ``pallas_tracking`` "on" (the flight
+    kernel, pallas_e2e's "pallas" side, seeds PORT_SEED + 13 i) and "off"
+    (the lock-step loop, its "xla" side, seeds REF_SEED + 13 i), k
+    replicates of ``steps`` steps each. Returns the gate dict of the
+    kernel against the loop (``gate``), the statistic and steps that
+    ``choose_statistic`` takes from the loop side's floors, whether every
+    scalar floor is at or below FLOOR_TARGET, and both sides' trackers
+    and mean Te."""
+    kernel = small_corona(**(cell_kw or CELLS[TRACKER_CELL]), device=device)
+    kernel = kernel.with_config(cell_config(kernel.cfg, TRACKER_STATISTIC))
+    loop = kernel.with_config(dataclasses.replace(
+        kernel.cfg, run=dataclasses.replace(kernel.cfg.run,
+                                            pallas_tracking="off")))
+    tally_from = steps - 1
+    reps = {}
+    for name, sim, seed0 in (("loop", loop, REF_SEED),
+                             ("kernel", kernel, PORT_SEED)):
+        state0 = sim.state
+        reps[name] = [replicate_channels(sim, state0, seed0 + 13 * i, steps,
+                                         tally_from) for i in range(k)]
+    ref = side_record(loop, reps["loop"],
+                      [REF_SEED + 13 * i for i in range(k)],
+                      TRACKER_STATISTIC, steps, tally_from)
+    floors = ref["floors"]
+    chosen = choose_statistic([{"statistic": TRACKER_STATISTIC,
+                                "steps": steps, "floors": floors}])
+    return {
+        "gate": gate(reps["kernel"], ref),
+        "statistic": chosen,
+        "floors_ok": all(floors[q] <= FLOOR_TARGET for q in SCALARS),
+        "floors": floors,
+        "trackers": {"kernel": kernel.tracker, "loop": loop.tracker},
+        "te_mean": {n: float(np.mean([x["te_mean"] for x in r]))
+                    for n, r in reps.items()},
+    }

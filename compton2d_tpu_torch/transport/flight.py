@@ -189,14 +189,15 @@ def guide_cell(u: torch.Tensor) -> torch.Tensor:
 def window_z(nz: int, nr: int) -> int:
     """The kernel mode of an nz x nr grid: 0 (resident tallies) up to
     MAX_ZONES zones, WIN_Z (windowed) above (the reference's rule,
-    ``compton2d_tpu/transport/tracking.py:541``). Grids with an edge above
-    MAX_EDGE raise NotImplementedError: the reference runs them on its XLA
-    loop, which is not ported."""
+    ``compton2d_tpu/transport/tracking.py:541``). The kernel takes no edge
+    above MAX_EDGE: such a grid raises NotImplementedError here, and the
+    driver runs it on the lock-step loop (``tracking.loop_iteration``), as
+    the reference runs it on its XLA loop."""
     if nz > MAX_EDGE or nr > MAX_EDGE:
         raise NotImplementedError(
-            f"compton2d_tpu_torch: grids with nz or nr > {MAX_EDGE} (the "
-            f"reference's XLA tracking loop; nz={nz}, nr={nr}) are not "
-            "ported yet")
+            f"compton2d_tpu_torch: the flight kernel takes nz, nr <= "
+            f"{MAX_EDGE} (nz={nz}, nr={nr}); pallas_tracking 'off' or "
+            "'auto' runs such a grid on the lock-step loop")
     return 0 if nz * nr <= MAX_ZONES else WIN_Z
 
 

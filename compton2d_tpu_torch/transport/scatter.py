@@ -1,25 +1,37 @@
-"""Weighted Compton scatter sampler for stratified tail splitting
-(counterpart of ``compton2d_tpu.transport.scatter``).
+"""Compton scatter samplers (counterpart of
+``compton2d_tpu.transport.scatter``; compb_2d.f:36-239).
 
-Only the stratified path is ported: the rejection-free sampler
-:func:`scatter_stratified` draws the target electron by inverse CDF
-restricted to a stratum [u_lo, u_hi) of the zone's electron CDF and the
-electron-photon angle from the flux measure, and carries the measure
-correction sigma_KN-ratio(znue) / Z in ``wscale`` (compb_2d.f:36-239 with
-the KN acceptance replaced by that weight). The reference's rejection
-sampler ``scatter`` runs only outside stratified splitting with the
-scatter not inlined, which the port does not run.
+Two samplers share the electron-frame stages (sz rejection, boost,
+azimuth: ``_sample_sz`` and ``_finish_scatter``):
+
+- :func:`scatter`, the rejection sampler of the lock-step flight loop
+  (``tracking.loop_iteration``, outside stratified splitting): up to
+  ``max_tries`` candidates of a target electron drawn by inverse CDF and an
+  electron-photon angle from the relativistic flux factor, each accepted
+  with probability sigma_KN(znue) / sigma_T;
+- :func:`scatter_stratified`, the weighted sampler of stratified tail
+  splitting: the electron by inverse CDF restricted to a stratum [u_lo,
+  u_hi) of the zone's electron CDF, the angle from the flux measure, and
+  the measure correction sigma_KN-ratio(znue) / Z carried in ``wscale``.
 
 Random numbers come in as :class:`ScatterDraws`, so tests can feed the
-reference's own uniforms. The reference's open-ended sz rejection loop
-(``_sample_sz``: retry until every lane accepts, at most ``max_tries``
-rounds) becomes all ``max_tries`` candidates at once with the first
-accepted one kept: the same value for every lane, and no host read of
-the loop condition.
+reference's own uniforms. The reference's open-ended rejection loops
+(retry until every lane accepts, at most ``max_tries`` rounds) become all
+``max_tries`` candidates at once with the first accepted one kept: the
+same value for every lane, and no host read of the loop condition.
+
+A lane that accepts no electron candidate takes its last one with znue =
+max(zn, 1e-10), the flight kernel's rule (flight_pallas2.py:722-740,
+``transport/flight.py::flight_step_reference``). The reference's
+``_sample_electron_and_angle`` keeps its loop's initial values there
+(gamma 1, znue 1e-3: a 0.511 keV photon in the electron frame whatever
+the photon's energy), which below about 1e-9 keV, where no candidate
+reaches zn >= 1e-10, turns every scattered radio photon into a 0.51 keV
+one of 5e9 times the weight (ROADMAP §C).
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -39,11 +51,14 @@ class ScatterResult(NamedTuple):
 
 
 class ScatterDraws(NamedTuple):
-    """The uniforms of one weighted scatter for k lanes: (k,) each, the sz
-    candidates (max_tries, k). The fields follow the reference's key
-    split in ``scatter_stratified`` (k1a, k1b, k1c, k2, k3, k4, k5)."""
+    """The uniforms of one scatter for k lanes, following the reference's
+    key splits. In the weighted sampler (``scatter_stratified``: k1a, k1b,
+    k1c, k2, k3, k4, k5) ``u_e``, ``u_om`` and ``u_tl`` are (k,) and
+    ``u_acc`` is None; in the rejection sampler (``scatter``) they and
+    ``u_acc`` hold one row per electron candidate, (max_tries, k). The sz
+    candidates are (max_tries, k) in both."""
 
-    u_e: torch.Tensor      # electron CDF position within the stratum
+    u_e: torch.Tensor      # electron CDF position (within the stratum)
     u_om: torch.Tensor     # electron-photon angle
     u_tl: torch.Tensor     # flux-factor flip
     u_sz1: torch.Tensor    # (max_tries, k) sz candidate
@@ -51,17 +66,26 @@ class ScatterDraws(NamedTuple):
     u_a1: torch.Tensor     # electron-frame azimuth
     u_a2: torch.Tensor     # lab azimuth
     u_sgn: torch.Tensor    # azimuth rotation sign
+    u_acc: Optional[torch.Tensor] = None   # KN acceptance of a candidate
 
 
 def draw_scatter_uniforms(gen: torch.Generator, k: int, max_tries: int,
-                          device) -> ScatterDraws:
-    """All uniforms of k weighted scatters in one call on ``gen``."""
-    u = torch.rand((2 * max_tries + 6, k), generator=gen, device=device)
+                          device, rejection: bool = False) -> ScatterDraws:
+    """All uniforms of k scatters in one call on ``gen``: for the weighted
+    sampler, or with ``rejection`` for the rejection sampler."""
     t = max_tries
+    if not rejection:
+        u = torch.rand((2 * t + 6, k), generator=gen, device=device)
+        return ScatterDraws(
+            u_e=u[0], u_om=u[1], u_tl=u[2], u_sz1=u[3:3 + t],
+            u_sz2=u[3 + t:3 + 2 * t], u_a1=u[3 + 2 * t], u_a2=u[4 + 2 * t],
+            u_sgn=u[5 + 2 * t],
+        )
+    u = torch.rand((6 * t + 3, k), generator=gen, device=device)
     return ScatterDraws(
-        u_e=u[0], u_om=u[1], u_tl=u[2], u_sz1=u[3:3 + t],
-        u_sz2=u[3 + t:3 + 2 * t], u_a1=u[3 + 2 * t], u_a2=u[4 + 2 * t],
-        u_sgn=u[5 + 2 * t],
+        u_e=u[:t], u_om=u[t:2 * t], u_tl=u[2 * t:3 * t],
+        u_sz1=u[4 * t:5 * t], u_sz2=u[5 * t:6 * t], u_a1=u[6 * t],
+        u_a2=u[6 * t + 1], u_sgn=u[6 * t + 2], u_acc=u[3 * t:4 * t],
     )
 
 
@@ -152,6 +176,70 @@ def _finish_scatter(znu, mu, cphi, sphi, gamma, beta, omeg, znue, sz,
         e=znus * EMASS_KEV, mu=wmus, cphi=cphi_n / nrm, sphi=sphi_n / nrm,
         wscale=znus / torch.clamp_min(znu, 1e-30), i_gam=i_gam,
     )
+
+
+def _candidates(znu: torch.Tensor, cdf_rows: torch.Tensor, gnt: torch.Tensor,
+                draws: ScatterDraws):
+    """The (max_tries, k) electron candidates (gamma, beta, electron bin)
+    and angles of the rejection sampler, and their electron-frame energy
+    zn (compb_2d.f:36-74). The bin is ``_draw_from_cdf``'s compare count
+    #(cdf < u), taken as the insertion point of u in the sorted row (which
+    has the same count however the row is ordered), so the candidates need
+    no (max_tries, k, num_nt) compare."""
+    num_nt = gnt.shape[0]
+    rows = torch.sort(cdf_rows, dim=-1).values
+    idx = torch.searchsorted(rows, draws.u_e.t().contiguous()).t()
+    idx = torch.clamp(idx, 1, num_nt - 1)
+    gm1_mid = torch.sqrt(gnt[1:] * gnt[:-1]).to(torch.float32)
+    gamma = gm1_mid[idx - 1] + 1.0
+    beta = torch.sqrt(torch.clamp_min(1.0 - 1.0 / (gamma * gamma), 0.0))
+    om = torch.clamp(2.0 * draws.u_om - 1.0, -_CLAMP, _CLAMP)
+    # relativistic flux factor: flip with probability 1 - (1 - beta om)/2
+    om = torch.clamp(torch.where(draws.u_tl > 0.5 * (1.0 - beta * om),
+                                 -om, om), -_CLAMP, _CLAMP)
+    zn = (1.0 - beta * om) * znu * gamma
+    return gamma, beta, om, zn, idx.to(torch.int32)
+
+
+def _sample_electron_and_angle(znu, cdf_rows, gnt, draws: ScatterDraws,
+                               need: torch.Tensor):
+    """Stages 1-3 (compb_2d.f:36-93): (gamma, beta, omeg, znue, i_gam) of
+    the first candidate accepted with probability sigma_KN(zn) / sigma_T
+    (and zn >= 1e-10); a lane that accepts none takes its last candidate
+    with znue = max(zn, 1e-10), as the flight kernel does. Lanes outside
+    ``need`` give values nobody reads."""
+    gamma, beta, om, zn, idx = _candidates(znu, cdf_rows, gnt, draws)
+    ok = (zn >= 1e-10) & (draws.u_acc <= _kn_ratio_f32(zn)) & need
+    first = torch.argmax(ok.to(torch.uint8), dim=0)
+    pick = torch.where(torch.any(ok, dim=0), first,
+                       zn.shape[0] - 1)[None]
+
+    def take(x):
+        return torch.gather(x, 0, pick)[0]
+
+    return (take(gamma), take(beta), take(om),
+            torch.clamp_min(take(zn), 1e-10), take(idx))
+
+
+def scatter(
+    e_kev: torch.Tensor,      # (k,) photon energies
+    mu: torch.Tensor,
+    cphi: torch.Tensor,
+    sphi: torch.Tensor,
+    cdf_rows: torch.Tensor,   # (k, num_nt) each lane's zone electron CDF
+    gnt: torch.Tensor,        # (num_nt,)
+    draws: ScatterDraws,      # the rejection sampler's uniforms
+    need: torch.Tensor,       # (k,) bool: lanes that scatter
+) -> ScatterResult:
+    """One Compton scatter of each lane by rejection (``scatter.scatter``
+    of the reference, with the flight kernel's exhaustion rule):
+    ``wscale`` = E'/E keeps the photon number."""
+    znu = (e_kev / EMASS_KEV).to(torch.float32)
+    gamma, beta, omeg, znue, i_gam = _sample_electron_and_angle(
+        znu, cdf_rows, gnt, draws, need)
+    sz = _sample_sz(znue, draws.u_sz1, draws.u_sz2, need)
+    return _finish_scatter(znu, mu, cphi, sphi, gamma, beta, omeg, znue, sz,
+                           i_gam, draws.u_a1, draws.u_a2, draws.u_sgn)
 
 
 def scatter_stratified(

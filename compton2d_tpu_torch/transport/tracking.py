@@ -1,20 +1,30 @@
-"""Photon tracking: the kernel's outer round loop, boundary leaks and
-reflection, stratified scatters and the census tallies (counterpart of
-``compton2d_tpu.transport.tracking`` on the Pallas path).
+"""Photon tracking: the flight kernel's outer rounds and the lock-step
+flight loop, boundary leaks and reflection, the scatters outside the
+kernel and the census tallies (counterpart of
+``compton2d_tpu.transport.tracking``).
 
-Each outer round launches the flight kernel (``transport.flight``) over
-all slots; a kernel entry ends only at census, leak, a collision in the
-strat mode, or the iteration budget. Lanes frozen with FLAG_LEAK are
-handed to :func:`_leak` (escape tallies, Compton reflection off the lower
-boundary and the outer disk, event records); a lane reflected at the
-lower boundary stays alive and flies on in the next round. With the
-scatter inlined, the kernel's per-lane scatter logs are histogrammed into
-e_ic / n_esp; under stratified splitting the lanes frozen with
-FLAG_SCATTER go through :func:`apply_scatter`, which also places the tail
-copies in free slots. The reference's one-hot matmul tallies
-(``zone_accum`` / ``hist2d_accum``) and row lookups (``_zone_rows``)
-become deterministic segment sums and gathers, and its compare-count
-binning and bisections become ``searchsorted``.
+``transport_step`` runs one of two trackers (``TrackStatics.tracker``,
+chosen by the driver from ``RunConfig.pallas_tracking``):
+
+- ``"kernel"``: each outer round launches the flight kernel
+  (``transport.flight``) over all slots; a kernel entry ends only at
+  census, leak, a collision in the strat mode, or the iteration budget.
+  Lanes frozen with FLAG_LEAK are handed to :func:`_leak`; with the
+  scatter inlined, the kernel's per-lane scatter logs are histogrammed
+  into e_ic / n_esp; under stratified splitting the lanes frozen with
+  FLAG_SCATTER go through :func:`apply_scatter`;
+- ``"loop"``: the reference's lock-step loop (``_flight_phase``): each
+  iteration (:func:`loop_iteration`) moves every live slot by one flight
+  leg in plain PyTorch, on any grid and any slot count, with the leaks
+  through :func:`_leak` and the collisions through :func:`apply_scatter`
+  (the rejection sampler ``scatter.scatter``, or the stratified one).
+
+:func:`_leak` does the escape tallies, Compton reflection off the lower
+boundary and the outer disk, and the event records; a lane reflected at
+the lower boundary stays alive and flies on. The reference's one-hot
+matmul tallies (``zone_accum`` / ``hist2d_accum``) and row lookups
+(``_zone_rows``) become deterministic segment sums and gathers, and its
+compare-count binning and bisections become ``searchsorted``.
 """
 from __future__ import annotations
 
@@ -24,11 +34,13 @@ from typing import Callable, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from compton2d_tpu_torch.constants import C_LIGHT
 from compton2d_tpu_torch.state import EventBuffer, PhotonArray, Tallies
-from compton2d_tpu_torch.transport import flight
+from compton2d_tpu_torch.transport import flight, geometry
 from compton2d_tpu_torch.transport.scatter import (
     ScatterDraws,
     draw_scatter_uniforms,
+    scatter,
     scatter_stratified,
 )
 
@@ -58,6 +70,9 @@ class TrackStatics:
     strat_p_min: float = 1.0e-6
     strat_p_max: float = 0.5
     strat_copies: int = 1
+    # "kernel": the flight kernel's outer rounds; "loop": the lock-step
+    # flight loop (see the module docstring)
+    tracker: str = "kernel"
 
 
 class TrackContext(NamedTuple):
@@ -137,17 +152,18 @@ def sample_reflection(e, w, u_cdf, u_e, e_ref, p_ref_t, w_abs_t):
     return e_new, w_new
 
 
-# draw(first_stream, n_streams, idx) -> uniforms of n_streams weighted
-# scatters for each slot in idx, stream-major: stream 0 is the parent's
-# draw, 1 + m the draw of tail copy m (the reference's k_scat and
-# fold_in(k_scat, 1 + m))
+# draw(first_stream, n_streams, idx) -> uniforms of n_streams scatters for
+# each slot in idx, stream-major: stream 0 is the parent's draw, 1 + m the
+# draw of tail copy m (the reference's k_scat and fold_in(k_scat, 1 + m));
+# the weighted sampler's uniforms under strat_split, else the rejection
+# sampler's (stream 0 only)
 ScatterDrawFn = Callable[[int, int, torch.Tensor], ScatterDraws]
 
 
 def generator_draws(seed: int, max_tries: int) -> ScatterDrawFn:
-    """The scatter draw layer of one round: the parent stream and the copy
-    streams come from two generators seeded from ``seed``, so the parents'
-    numbers do not depend on the number of copies."""
+    """The stratified scatter draw layer of one round: the parent stream
+    and the copy streams come from two generators seeded from ``seed``, so
+    the parents' numbers do not depend on the number of copies."""
 
     def draw(first_stream: int, n_streams: int, idx: torch.Tensor):
         gen = torch.Generator(device=idx.device)
@@ -156,6 +172,51 @@ def generator_draws(seed: int, max_tries: int) -> ScatterDrawFn:
                                      max_tries, idx.device)
 
     return draw
+
+
+def round_seed(gen: torch.Generator, device) -> int:
+    """A round's scatter stream seed (the reference's k_scat), from
+    ``gen``: one host read."""
+    return int(torch.randint(0, 1 << 62, (1,), generator=gen, device=device))
+
+
+class LoopDraws(NamedTuple):
+    """The uniforms of one iteration of the lock-step loop, in the order
+    of the reference's streams (fold_in(key, it) split into k_tau,
+    k_absp, k_scat, k_refl1, k_refl2). The leak and scatter uniforms are
+    asked for only when a lane leaks (with cr_sent != 0) or scatters."""
+
+    u_tau: torch.Tensor              # (n,) optical depth draw, [1e-12, 1)
+    u_abs: torch.Tensor              # (n,) absorption depth draw, [1e-7, 1)
+    leak: Callable[[], LeakDraws]
+    scatter: ScatterDrawFn
+
+
+def generator_loop_draws(gen: torch.Generator, n: int, device,
+                         st: TrackStatics) -> LoopDraws:
+    """One iteration's uniforms from ``gen``: u_tau and u_abs mapped to
+    their ranges as ``jax.random.uniform(minval, maxval)`` maps them; the
+    rejection sampler's uniforms straight from ``gen``, the stratified
+    sampler's from a seed read from it (``generator_draws``)."""
+    u = torch.rand((2, n), generator=gen, device=device)
+    t = int(st.max_scatter_tries)
+    strat = []     # the iteration's stratified draw layer, made once
+
+    def strat_draw(first_stream, n_streams, idx):
+        if not strat:
+            strat.append(generator_draws(round_seed(gen, device), t))
+        return strat[0](first_stream, n_streams, idx)
+
+    def rejection_draw(first_stream, n_streams, idx):
+        return draw_scatter_uniforms(gen, n_streams * idx.shape[0], t,
+                                     device, rejection=True)
+
+    return LoopDraws(
+        u_tau=torch.clamp_min(u[0] * (1.0 - 1e-12) + 1e-12, 1e-12),
+        u_abs=torch.clamp_min(u[1] * (1.0 - 1e-7) + 1e-7, 1e-7),
+        leak=lambda: draw_leak_uniforms(gen, n, device),
+        scatter=strat_draw if st.strat_split else rejection_draw,
+    )
 
 
 def segment_sum(vals: torch.Tensor, idx: torch.Tensor,
@@ -238,14 +299,36 @@ def transport_step(
     photons: PhotonArray, tallies: Tallies, events: EventBuffer,
     gen: torch.Generator, ctx: TrackContext, st: TrackStatics,
 ) -> Tuple[PhotonArray, Tallies, EventBuffer]:
-    """Track every photon to census, escape or absorption: outer rounds
-    of the flight kernel with the leaks (and, under stratified splitting,
-    the scatters) handled between rounds. The rounds stop once the
-    accumulated kernel iterations reach max_iters, so flight iterations
-    are bounded by 2*max_iters; stragglers go to census as they are.
-    Grids above flight.MAX_ZONES run the kernel's windowed mode: a lane
-    frozen with FLAG_WINDOW keeps its state and flies on in the next
-    round, under its tile's new window."""
+    """Track every photon to census, escape or absorption with the
+    tracker ``st.tracker``; photons still in flight at the iteration
+    budget (stragglers, counted in ``n_straggler``) go to census as they
+    are, and ``trk_rounds`` counts the kernel's rounds or the loop's
+    iterations."""
+    if st.tracker == "loop":
+        ph, tl, ev, rounds = _track_loop(photons, tallies, events, gen,
+                                         ctx, st)
+    elif st.tracker == "kernel":
+        ph, tl, ev, rounds = _track_kernel(photons, tallies, events, gen,
+                                           ctx, st)
+    else:
+        raise ValueError(f"tracker {st.tracker!r} is not 'kernel' or 'loop'")
+    tl = tl._replace(
+        trk_rounds=tl.trk_rounds + rounds,
+        n_straggler=tl.n_straggler + torch.sum(ph.alive & (ph.dcen > 0.0),
+                                               dtype=torch.int32),
+    )
+    ph = ph._replace(dcen=torch.where(ph.alive, 0.0, ph.dcen))
+    return ph, tl, ev
+
+
+def _track_kernel(photons, tallies, events, gen, ctx, st):
+    """Outer rounds of the flight kernel with the leaks (and, under
+    stratified splitting, the scatters) handled between rounds. The rounds
+    stop once the accumulated kernel iterations reach max_iters, so flight
+    iterations are bounded by 2*max_iters. Grids above flight.MAX_ZONES
+    run the kernel's windowed mode: a lane frozen with FLAG_WINDOW keeps
+    its state and flies on in the next round, under its tile's new
+    window. Returns the state and the rounds."""
     n = photons.n_slots
     num_nt = ctx.cdf_nt.shape[1]
     inline = not st.strat_split
@@ -298,8 +381,7 @@ def transport_step(
             )
         else:
             # the round's scatter stream (the reference's k_scat)
-            scat_seed = int(torch.randint(0, 1 << 62, (1,), generator=gen,
-                                          device=ph.e.device))
+            scat_seed = round_seed(gen, ph.e.device)
         leak_mask = (res.flag == flight.FLAG_LEAK) & ph.alive
         if bool(torch.any(leak_mask)):
             draws = (draw_leak_uniforms(gen, n, ph.e.device) if st.cr_sent
@@ -316,30 +398,155 @@ def transport_step(
                         scat_seed, int(st.max_scatter_tries)), ctx, st)
         rnd += 1
         it_tot += res.it_used
+    return ph, tl, ev, rnd
+
+
+def _track_loop(photons, tallies, events, gen, ctx, st):
+    """The lock-step loop (``tracking._flight_phase``, tracking.py:294-489
+    of the reference): iterations over every slot while a live slot has
+    census distance left, at most st.max_iters of them. Each asks the
+    device three questions (the loop condition, any leak, any scatter).
+    Returns the state and the iterations."""
+    ph, tl, ev = photons, tallies, events
+    n, dev = ph.n_slots, ph.e.device
+    it = 0
+    while (it < st.max_iters
+           and bool(torch.any(ph.alive & (ph.dcen > 0.0)))):
+        ph, tl, ev = loop_iteration(ph, tl, ev, ctx, st,
+                                    generator_loop_draws(gen, n, dev, st))
+        it += 1
+    return ph, tl, ev, it
+
+
+def loop_iteration(ph: PhotonArray, tl: Tallies, ev: EventBuffer,
+                   ctx: TrackContext, st: TrackStatics, draws: LoopDraws
+                   ) -> Tuple[PhotonArray, Tallies, EventBuffer]:
+    """One flight leg of every live slot with census distance left (the
+    body of the reference's ``_flight_phase``, imctrk2d.f:170-684): the
+    sigma / kappa lookup, the optical depth draw, the distance to the zone
+    boundary, the nearest event (census, collision or boundary), the
+    continuous absorption (with the gamma-gamma share under pair_switch)
+    and its pressure deposit, the weight-floor kill, the move (pinned to
+    the boundary point on a crossing), the zone hop or the leak, and the
+    Compton scatter."""
+    where = torch.where
+    f32 = torch.float32
+    nz, nr = st.nz, st.nr
+    act = ph.alive & (ph.dcen > 0.0)
+    jz_c = torch.clamp(ph.jz, 0, nz - 1)
+    kr_c = torch.clamp(ph.kr, 0, nr - 1)
+    zid = jz_c * nr + kr_c
+
+    # ---- cross sections and the optical depth draw ----------------------
+    sk = loggrid_interp(ctx.opac_zone, zid, ph.e, ctx.e_ph_log0,
+                        ctx.e_ph_dlog)
+    sig_s = torch.clamp_min(sk[:, 0], 1e-30)
+    kap = sk[:, 1]
+    dcol = -torch.log(draws.u_tau) / sig_s
+
+    # ---- geometry and the event (imctrk2d.f:216-379) --------------------
+    g = geometry.distance_to_boundary(ph.r, ph.z, ph.mu, ph.cphi, ph.sphi,
+                                      jz_c, kr_c, ctx.r_edges, ctx.z_edges)
+    trld = torch.minimum(ph.dcen, dcol)
+    ikind = where(ph.dcen <= dcol, 2, 3)
+    hit_bnd = g.trldb < trld
+    trld = where(hit_bnd, g.trldb, trld)
+    ikind = where(hit_bnd, 1, ikind)
+
+    # ---- continuous absorption (imctrk2d.f:382-462) ---------------------
+    if st.pair_switch:
+        kgg = loggrid_interp(ctx.kgg_zone, zid, ph.e, ctx.e_gg_log0,
+                             ctx.e_gg_dlog)
+        e_gg0 = torch.exp(ctx.e_gg_log0.to(f32))
+        kgg = where(ph.e > e_gg0, kgg, kgg * ph.e / e_gg0)
+        sigabs = torch.clamp_min(kap + kgg, 1e-30)
+    else:
+        sigabs = torch.clamp_min(kap, 1e-30)
+    xabs = sigabs * trld
+    ewnew = where(xabs < 100.0, ph.w * torch.exp(-xabs), 0.0)
+    deleabs = torch.clamp_min(ph.w - ewnew, 0.0)
+    if st.pair_switch:
+        # above 47 keV the gamma-gamma share becomes pairs, not heat
+        frac_heat = where(ph.e > 47.0, kap / sigabs, 1.0)
+        tl = tl._replace(e_pair_abs=tl.e_pair_abs + torch.sum(
+            where(act, deleabs * (1.0 - frac_heat), 0.0)))
+        edep_add = where(act, deleabs * frac_heat, 0.0)
+    else:
+        edep_add = where(act, deleabs, 0.0)
+    # pressure deposit at a sampled absorption depth (imctrk2d.f:440-457)
+    tiny_abs = xabs <= 1e-5
+    frac = torch.clamp(-torch.expm1(-xabs) * draws.u_abs, 0.0, 0.999999)
+    sstar = where(tiny_abs, 0.5 * trld, -torch.log1p(-frac) / sigabs)
+    denom = torch.sqrt(torch.clamp_min(
+        ph.r ** 2 + 2.0 * ph.mu * ph.r * sstar + sstar ** 2, 1e-20))
+    wmustar = where(tiny_abs, ph.mu, (ph.mu * ph.r + sstar) / denom)
+    prdep_add = where(act, deleabs * wmustar * float(np.float32(C_LIGHT)),
+                      0.0)
+    dep = segment_sum(torch.stack([edep_add, prdep_add], dim=1), zid,
+                      nz * nr)
+    killed = act & (ewnew <= st.weight_floor * ph.w0)
     tl = tl._replace(
-        trk_rounds=tl.trk_rounds + rnd,
-        n_straggler=tl.n_straggler + torch.sum(ph.alive & (ph.dcen > 0.0),
-                                               dtype=torch.int32),
+        edep=tl.edep + dep[:, 0].reshape(nz, nr),
+        prdep=tl.prdep + dep[:, 1].reshape(nz, nr),
+        e_killed=tl.e_killed + torch.sum(where(killed, ewnew, 0.0)),
     )
-    ph = ph._replace(dcen=torch.where(ph.alive, 0.0, ph.dcen))
+
+    # ---- move, pinned to the boundary point on a crossing ---------------
+    on_bnd = act & (ikind == 1)
+    f_h = trld * torch.sqrt(torch.clamp_min(1.0 - ph.mu ** 2, 0.0))
+    r_free = torch.sqrt(torch.clamp_min(
+        f_h ** 2 + ph.r ** 2 + 2.0 * f_h * ph.r * ph.cphi, 0.0))
+    rnew = where(on_bnd, g.rbnd, r_free)
+    znew = where(on_bnd, g.zbnd, ph.z + trld * ph.mu)
+    rs = torch.clamp_min(rnew, 1e-20)
+    cphi_n = torch.clamp((f_h + ph.cphi * ph.r) / rs, -1.0, 1.0)
+    sphi_n = torch.clamp(ph.sphi * ph.r / rs, -1.0, 1.0)
+    nrm = torch.sqrt(torch.clamp_min(cphi_n ** 2 + sphi_n ** 2, 1e-12))
+    upd = act & ~killed
+    ph = ph._replace(
+        w=where(act, where(killed, 0.0, ewnew), ph.w),
+        r=where(upd, rnew, ph.r),
+        z=where(upd, znew, ph.z),
+        cphi=where(upd, cphi_n / nrm, ph.cphi),
+        sphi=where(upd, sphi_n / nrm, ph.sphi),
+        dcen=where(upd, ph.dcen - trld, ph.dcen),
+        alive=ph.alive & ~killed,
+    )
+
+    # ---- zone hops and leaks --------------------------------------------
+    cross = upd & (ikind == 1)
+    in_dom = (g.jnew >= 0) & (g.jnew < nz) & (g.knew >= 0) & (g.knew < nr)
+    hop = cross & in_dom
+    ph = ph._replace(jz=where(hop, g.jnew, ph.jz),
+                     kr=where(hop, g.knew, ph.kr))
+    leak = cross & ~in_dom
+    if bool(torch.any(leak)):
+        ph, tl, ev = _leak(ph, tl, ev, leak, g.jnew, g.knew, ctx, st,
+                           draws.leak() if st.cr_sent else None)
+
+    # ---- Compton scatter (imctrk2d.f:580-684) ---------------------------
+    sct = upd & (ikind == 3) & ph.alive
+    if bool(torch.any(sct)):
+        ph, tl = apply_scatter(ph, tl, sct, zid, draws.scatter, ctx, st)
     return ph, tl, ev
 
 
 def apply_scatter(ph: PhotonArray, tl: Tallies, sct: torch.Tensor,
                   zid: torch.Tensor, draw: ScatterDrawFn, ctx: TrackContext,
                   st: TrackStatics) -> Tuple[PhotonArray, Tallies]:
-    """Execute the Compton scatters of the lanes ``sct`` (the ikind=3
-    branch, imctrk2d.f:580-684) with stratified tail splitting: the parent
-    samples the electron stratum below the tail boundary c = cdf[strat_icut]
-    with weight 1 - p_tail; M = strat_copies copies in free slots each
-    sample an equal sub-stratum of the tail [c, 1) with weight p_tail / M.
-    Placement is all-or-nothing per scatter, in slot order, while free
-    slots last, so the strata stay exactly unbiased. Only the scattering
-    lanes are computed (one host read of their count)."""
+    """Execute the Compton scatters of the lanes ``sct`` in zones ``zid``
+    (the ikind=3 branch, imctrk2d.f:580-684). Without strat_split each
+    lane scatters once by the rejection sampler (``scatter.scatter``, its
+    uniforms from ``draw(0, 1, idx)``). With stratified tail splitting the
+    parent samples the electron stratum below the tail boundary c =
+    cdf[strat_icut] with weight 1 - p_tail; M = strat_copies copies in
+    free slots each sample an equal sub-stratum of the tail [c, 1) with
+    weight p_tail / M. Placement is all-or-nothing per scatter, in slot
+    order, while free slots last, so the strata stay exactly unbiased.
+    Only the scattering lanes are computed (one host read of their
+    count)."""
     if not st.strat_split:
-        raise NotImplementedError(
-            "compton2d_tpu_torch: the scatter outside the kernel without "
-            "strat_split is not ported yet")
+        return _apply_rejection_scatter(ph, tl, sct, zid, draw, ctx, st)
     f32 = torch.float32
     nzr = st.nz * st.nr
     num_nt = ctx.cdf_nt.shape[1]
@@ -428,6 +635,40 @@ def apply_scatter(ph: PhotonArray, tl: Tallies, sct: torch.Tensor,
         e_ic=tl.e_ic + segment_sum(d_e, d_gam, num_nt),
         n_esp=tl.n_esp + segment_sum(torch.ones_like(d_e), d_gam, num_nt),
         e_scatter=tl.e_scatter + torch.sum(d_e),
+    )
+    return ph, tl
+
+
+def _apply_rejection_scatter(ph, tl, sct, zid, draw, ctx, st):
+    """The branch of :func:`apply_scatter` without strat_split
+    (tracking.py:813-839 of the reference): each lane in ``sct`` scatters
+    off its zone's electrons by rejection; its weight scales by E'/E, and
+    the energy it gains is added to edep and e_scatter (the audit's
+    absorbed energy is edep - e_scatter) and, by electron bin, to e_ic
+    and n_esp."""
+    nzr = st.nz * st.nr
+    num_nt = ctx.cdf_nt.shape[1]
+    idx = torch.nonzero(sct).reshape(-1)
+    z = zid[idx].long()
+    w_old = ph.w[idx]
+    res = scatter(ph.e[idx], ph.mu[idx], ph.cphi[idx], ph.sphi[idx],
+                  ctx.cdf_nt[z], ctx.gnt, draw(0, 1, idx),
+                  torch.ones_like(idx, dtype=torch.bool))
+    w_new = w_old * res.wscale
+    d_e = w_new - w_old
+    tl = tl._replace(
+        edep=tl.edep + segment_sum(d_e, z, nzr).reshape(st.nz, st.nr),
+        e_ic=tl.e_ic + segment_sum(d_e, res.i_gam, num_nt),
+        n_esp=tl.n_esp + segment_sum(torch.ones_like(d_e), res.i_gam,
+                                     num_nt),
+        e_scatter=tl.e_scatter + torch.sum(d_e),
+    )
+    ph = ph._replace(
+        e=ph.e.index_copy(0, idx, res.e),
+        w=ph.w.index_copy(0, idx, w_new),
+        mu=ph.mu.index_copy(0, idx, res.mu),
+        cphi=ph.cphi.index_copy(0, idx, res.cphi),
+        sphi=ph.sphi.index_copy(0, idx, res.sphi),
     )
     return ph, tl
 

@@ -6,8 +6,11 @@ each printed line by line:
 
 ``te``
     pairs off, nst 400, 2048 slots: mean Te after each of 3 steps on the
-    reference's XLA tracking path, on its Pallas path (interpret mode) and
-    on the port, over ``--seeds``;
+    reference's XLA tracking path, on it with the flight kernel's
+    exhaustion rule patched into its rejection sampler
+    (``jax_scatter_draws.kernel_exhaustion_rule``), on its Pallas path
+    (interpret mode), on the port's flight kernel (its plain version) and
+    on the port's lock-step loop, over ``--seeds``;
 ``trajectory``
     pairs on, 4x3 zones, nst 3000, 8192 slots: per step the audit, Te
     range, dn_pp, positron density and pair fraction of the reference
@@ -61,6 +64,7 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 TINY = dict(nz=2, nr=2, nst=400, n_slots=2048, num_nt=40, n_vol=32,
             nphfield=32, t_const=False, amxwl=0.5, gmin=3.0, gmax=20.0)
@@ -104,20 +108,31 @@ def _runs(cfg, seeds, steps):
 
 
 def te(seeds, steps):
+    import contextlib
+
     import jax
 
     from compton2d_tpu_torch import examples as pex
+    from jax_scatter_draws import kernel_exhaustion_rule
 
-    for label, pallas in (("reference XLA", "off"),
-                          ("reference Pallas", "on")):
-        sim = _reference(TINY, pallas)
-        init = sim.state
+    for label, pallas, patch in (
+            ("reference XLA", "off", contextlib.nullcontext),
+            ("reference XLA with the kernel's exhaustion rule", "off",
+             kernel_exhaustion_rule),
+            ("reference Pallas", "on", contextlib.nullcontext)):
+        with patch():
+            sim = _reference(TINY, pallas)
+            init = sim.state
+            for s in seeds:
+                sim.state = init._replace(key=jax.random.PRNGKey(s))
+                _print_te(label, s, sim, steps)
+    for label, tracker in (("port", "on"), ("port loop", "off")):
         for s in seeds:
-            sim.state = init._replace(key=jax.random.PRNGKey(s))
+            sim = pex.small_corona(**TINY, seed=s, device="cpu")
+            sim = sim.with_config(dataclasses.replace(
+                sim.cfg, run=dataclasses.replace(sim.cfg.run,
+                                                 pallas_tracking=tracker)))
             _print_te(label, s, sim, steps)
-    for s in seeds:
-        _print_te("port", s, pex.small_corona(**TINY, seed=s, device="cpu"),
-                  steps)
 
 
 def _print_te(label, seed, sim, steps):

@@ -1,6 +1,10 @@
 """The JAX reference's scatter uniforms as numpy, for feeding the port's
-samplers the same numbers, and the tolerances that sampler outputs are
-held to (a helper of the tests/test_torch_*.py files)."""
+samplers the same numbers, the tolerances that sampler outputs are held
+to, and the flight kernel's exhaustion rule patched into the reference's
+rejection sampler (a helper of the tests/test_torch_*.py files and of
+tests/compare_pairs.py)."""
+import contextlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -34,6 +38,80 @@ def strat_draws(key, n, max_tries) -> dict:
                 u_sgn=_u(k5, n))
 
 
+def rejection_draws(key, n, max_tries) -> dict:
+    """Every uniform ``scatter.scatter(key, ...)`` draws for n lanes, with
+    its rejection loops run to max_tries rounds: per electron candidate the
+    draw, angle, flip and acceptance uniforms of ``_sample_electron_and_
+    angle``'s key chain, one row per round."""
+    k1, k2, k3, k4, k5 = jax.random.split(key, 5)
+    rows = {"u_e": [], "u_om": [], "u_tl": [], "u_acc": []}
+    for _ in range(max_tries):
+        k1, *ks = jax.random.split(k1, 5)
+        for name, k in zip(rows, ks):
+            rows[name].append(_u(k, n))
+    u_sz1, u_sz2 = sz_uniforms(k2, n, max_tries)
+    return dict({k: np.stack(v) for k, v in rows.items()}, u_sz1=u_sz1,
+                u_sz2=u_sz2, u_a1=_u(k3, n), u_a2=_u(k4, n), u_sgn=_u(k5, n))
+
+
+def kernel_exhaustion_sampler(key, znu, draw_electron, max_tries, need):
+    """The reference's ``scatter._sample_electron_and_angle`` with the
+    flight kernel's exhaustion rule (flight_pallas2.py:722-740): at the
+    last round a lane that has accepted nothing takes its candidate with
+    znue = max(zn, 1e-10), where the reference keeps gamma 1, beta 0,
+    omeg 0 and znue 1e-3."""
+    from compton2d_tpu.transport import scatter as jsc
+
+    n = znu.shape[0]
+
+    def body(carry):
+        it, key, acc, gamma, beta, omeg, znue, i_gam = carry
+        key, k1, k2, k3, k4 = jax.random.split(key, 5)
+        g_new, b_new, i_new = draw_electron(k1)
+        om = 2.0 * jax.random.uniform(k2, (n,), jnp.float32) - 1.0
+        om = jnp.clip(om, -jsc._CLAMP, jsc._CLAMP)
+        tl = jax.random.uniform(k3, (n,), jnp.float32)
+        tr = 0.5 * (1.0 - b_new * om)
+        om = jnp.clip(jnp.where(tl > tr, -om, om), -jsc._CLAMP, jsc._CLAMP)
+        zn = (1.0 - b_new * om) * znu * g_new
+        u_acc = jax.random.uniform(k4, (n,), jnp.float32)
+        ok = (zn >= 1e-10) & (u_acc <= jsc._kn_ratio_f32(zn))
+        take = (ok | (it == max_tries - 1)) & ~acc
+        gamma = jnp.where(take, g_new, gamma)
+        beta = jnp.where(take, b_new, beta)
+        omeg = jnp.where(take, om, omeg)
+        znue = jnp.where(take, jnp.maximum(zn, 1e-10), znue)
+        i_gam = jnp.where(take, i_new, i_gam)
+        return it + 1, key, acc | take, gamma, beta, omeg, znue, i_gam
+
+    def cond(carry):
+        it, _, acc, *_ = carry
+        return (it < max_tries) & ~jnp.all(acc)
+
+    z0 = jnp.zeros((n,), jnp.float32)
+    init = (0, key, ~need, jnp.ones((n,), jnp.float32), z0, z0,
+            jnp.full((n,), 1e-3, jnp.float32), jnp.zeros((n,), jnp.int32))
+    _, _, _, gamma, beta, omeg, znue, i_gam = jax.lax.while_loop(
+        cond, body, init)
+    return gamma, beta, omeg, znue, i_gam
+
+
+@contextlib.contextmanager
+def kernel_exhaustion_rule():
+    """The reference's rejection sampler with the kernel's exhaustion rule
+    (:func:`kernel_exhaustion_sampler`) inside the block. Patch before the
+    reference's step is first traced: a Simulation built inside the block
+    traces its step with it."""
+    from compton2d_tpu.transport import scatter as jsc
+
+    orig = jsc._sample_electron_and_angle
+    jsc._sample_electron_and_angle = kernel_exhaustion_sampler
+    try:
+        yield
+    finally:
+        jsc._sample_electron_and_angle = orig
+
+
 def to_draws(d: dict, idx=None) -> ScatterDraws:
     """ScatterDraws of the lanes ``idx`` (all lanes if None)."""
     sel = slice(None) if idx is None else np.asarray(idx)
@@ -41,23 +119,27 @@ def to_draws(d: dict, idx=None) -> ScatterDraws:
                            for k, v in d.items()})
 
 
-def apply_scatter_draw(k_scat, n, max_tries):
+def apply_scatter_draw(k_scat, n, max_tries, rejection=False):
     """The port's ``tracking.ScatterDrawFn`` giving the reference's
     ``apply_scatter`` numbers: stream 0 from k_scat, stream 1 + m from
     fold_in(k_scat, 1 + m), each drawn for all n slots and then gathered
-    at the lanes asked for."""
+    at the lanes asked for; the weighted sampler's uniforms, or with
+    ``rejection`` the rejection sampler's (the branch without strat_split
+    has stream 0 only)."""
     cache = {}
+    uniforms = rejection_draws if rejection else strat_draws
 
     def draw(first, n_streams, idx):
         parts = []
         for s in range(first, first + n_streams):
             if s not in cache:
                 key = k_scat if s == 0 else jax.random.fold_in(k_scat, s)
-                cache[s] = strat_draws(key, n, max_tries)
+                cache[s] = uniforms(key, n, max_tries)
             parts.append(to_draws(cache[s], idx.numpy()))
-        return ScatterDraws(*(torch.cat([getattr(p, f) for p in parts],
-                                        dim=-1)
-                              for f in ScatterDraws._fields))
+        return ScatterDraws(*(
+            None if getattr(parts[0], f) is None
+            else torch.cat([getattr(p, f) for p in parts], dim=-1)
+            for f in ScatterDraws._fields))
 
     return draw
 

@@ -119,6 +119,7 @@ def test_small_record_on_cpu(monkeypatch, capsys):
     assert rec["step_hbm_model_pct_of_peak"] == pytest.approx(want, rel=1e-12)
     # the plain flight version on the CPU counts no launch
     assert set(rec["flight_launches"].values()) == {0}
+    assert rec["tracker"] == "kernel"
     assert err.strip().splitlines()[-1].startswith("# first step=")
 
 

@@ -86,6 +86,7 @@ def test_dryrun_multichip_two_gloo_ranks(tmp_path):
     dr = dryrun.dryrun_multichip(2, device="cpu", tiny=True, threads=1,
                                  rendezvous_dir=str(tmp_path))
     assert dr["world"] == 2 and dr["shapes"]["slots_per_rank"] == 1024
+    assert dr["trackers"] == ["kernel"] * 3   # both ranks and the one rank
     assert dr["bingo"] == pytest.approx(dr["bingo_one_rank"], rel=1e-6)
     assert dr["n_rr"] > 0 and dr["n_rr_one_rank"] > 0
     assert all(abs(b - 1.0) < 5e-3

@@ -182,3 +182,20 @@ def observables(mesh, seeds, steps: int, cfg: dict) -> list:
         out.append([a["escaped"], a["census"],
                     float(sim.state.zones.tea.mean())])
     return out
+
+
+def loop_steps(mesh, n_slots: int, steps: int) -> dict:
+    """The tiny corona with the FP solve on, ``pallas_tracking`` "auto",
+    ``n_slots`` split over the ranks: the tracker, each step's balance and
+    tallies, and the zones."""
+    sim = small_corona(**TINY, n_slots=n_slots, t_const=False, seed=5,
+                       device="cpu", mesh=mesh)
+    balance, tallies = [], []
+    for _ in range(steps):
+        out = sim.step()
+        balance.append(sim.energy_audit()["balance"])
+        tallies.append(tallies_np(out))
+    return dict(tracker=sim.tracker, balance=balance, tallies=tallies,
+                slots=sim.state.photons.n_slots,
+                zones={f: getattr(sim.state.zones, f).numpy().copy()
+                       for f in sim.state.zones._fields})

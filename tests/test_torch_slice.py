@@ -142,12 +142,14 @@ def _config(change, lower_spectra=()):
 
 
 @pytest.mark.parametrize("change", [
-    dict(grid=dict(nz=2, nr=128)),
-    dict(grid=dict(nz=128, nr=2)),
+    dict(grid=dict(nz=2, nr=128), run=dict(pallas_tracking="on")),
+    dict(grid=dict(nz=128, nr=2), run=dict(pallas_tracking="on")),
 ])
 def test_options_outside_the_slice_raise(change):
-    """Grid edges above 127 zones (meshes run since the multi-process
-    slice: tests/test_torch_parallel.py)."""
+    """Grid edges above 127 zones on the flight kernel (meshes run since
+    the multi-process slice: tests/test_torch_parallel.py; such grids run
+    on the lock-step loop under "auto" or "off" since the loop's slice:
+    tests/test_torch_loop.py)."""
     with pytest.raises(NotImplementedError):
         Simulation(_config(change), device="cpu")
 

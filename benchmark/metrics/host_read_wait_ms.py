@@ -1,0 +1,14 @@
+"""host_read_wait_ms: host milliseconds a step blocked in the program's
+explicit device-to-host reads (every read site of
+``compton2d_tpu_torch.telemetry``), over the traced stretch's steps
+(``harness/program_trace.py``)."""
+from pathlib import Path
+
+from harness import program_trace
+
+ROOT = Path(__file__).resolve().parent.parent
+
+
+def read(m):
+    return program_trace.per_step(m, ROOT, lambda rec: sum(
+        r["wait_ms"] for r in rec["snapshot"]["reads"].values()))

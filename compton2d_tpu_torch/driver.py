@@ -49,6 +49,7 @@ import numpy as np
 import torch
 
 from compton2d_tpu_torch import constants as cn
+from compton2d_tpu_torch import telemetry as tm
 from compton2d_tpu_torch.config import SimConfig, TimeWindow, ZoneInit
 from compton2d_tpu_torch.units import Scales, make_scales
 from compton2d_tpu_torch.fp.update import FPResult, fp_step, photon_fill
@@ -320,10 +321,11 @@ class Simulation:
 
     def _sync_clock(self):
         if getattr(self, "_clock_dirty", True):
-            self._host_time = float(self._state.time)
-            self._host_dt = float(self._state.dt)
-            self._host_dt_prev = float(self._state.dt_prev)
-            self._host_ncycle = int(self._state.ncycle)
+            s = self._state
+            self._host_time = tm.read("step.clock", s.time, float)
+            self._host_dt = tm.read("step.clock", s.dt, float)
+            self._host_dt_prev = tm.read("step.clock", s.dt_prev, float)
+            self._host_ncycle = tm.read("step.clock", s.ncycle, int)
             self._clock_dirty = False
 
     def __init__(self, cfg: SimConfig, zone_init: Optional[ZoneInit] = None,
@@ -423,32 +425,39 @@ class Simulation:
         return self
 
     def step(self) -> StepOutputs:
-        self._sync_clock()
-        self.src_static = self.window_sources.select(
-            self._host_time, self._host_dt, self._host_ncycle)
-        self._state, out = _step_impl(
-            self._state, self.src_static, self.grid, self.tables, self.cfg,
-            self.scales, self._host_ncycle, self.pair_tables,
-            self.coulomb_tables, self.mesh,
-        )
-        self._host_time += self._host_dt
-        self._host_dt_prev = self._host_dt
-        self._host_ncycle += 1
-        if self.cfg.run.adaptive_dt:
-            # the FP ladder picked the next dt on the device: read it back
-            self._host_dt = float(self._state.dt)
-        self.last_outputs = out
-        if self.event_writer is not None:
-            self._check_event_overflow(out)
-            self.event_writer.write(out.events)
-        if self.outputs is not None:
-            t = out.tallies
-            self.outputs.add_step(
-                t._replace(fout=t.fout.cpu(), edout=t.edout.cpu()),
-                self._host_time - self._host_dt_prev, self._host_dt_prev,
-                tea=self.state.zones.tea.cpu().numpy(),
+        with tm.span("step"):
+            self._sync_clock()
+            self.src_static = self.window_sources.select(
+                self._host_time, self._host_dt, self._host_ncycle)
+            self._state, out = _step_impl(
+                self._state, self.src_static, self.grid, self.tables, self.cfg,
+                self.scales, self._host_ncycle, self.pair_tables,
+                self.coulomb_tables, self.mesh,
             )
-        return out
+            self._host_time += self._host_dt
+            self._host_dt_prev = self._host_dt
+            self._host_ncycle += 1
+            if self.cfg.run.adaptive_dt:
+                # the FP ladder picked the next dt on the device: read it back
+                self._host_dt = tm.read("step.dt", self._state.dt, float)
+            self.last_outputs = out
+            with tm.span("step.outputs"):
+                if self.event_writer is not None:
+                    self._check_event_overflow(out)
+                    self.event_writer.write(out.events)
+                if self.outputs is not None:
+                    t = out.tallies
+                    self.outputs.add_step(
+                        t._replace(fout=tm.read("step.outputs", t.fout,
+                                                tm.to_host),
+                                   edout=tm.read("step.outputs", t.edout,
+                                                 tm.to_host)),
+                        self._host_time - self._host_dt_prev,
+                        self._host_dt_prev,
+                        tea=tm.read("step.outputs", self.state.zones.tea,
+                                    tm.to_host).numpy(),
+                    )
+            return out
 
     def run(self, n_steps: int):
         for _ in range(n_steps):
@@ -499,17 +508,22 @@ class Simulation:
     def finalize_outputs(self):
         """Write spectrum.dat, photons.dat, the light curves lc_muNN.dat and
         temp_profile.dat into the output directory."""
-        elapsed = float(self.state.time) + float(self.state.dt)
-        self.outputs.write_spectrum(
-            os.path.join(self.out_dir, "spectrum.dat"), elapsed)
-        self.outputs.write_spectrum(
-            os.path.join(self.out_dir, "photons.dat"), elapsed, photons=True)
-        self.outputs.write_light_curves(os.path.join(self.out_dir, "lc"))
-        self.outputs.write_temperature_profile(
-            os.path.join(self.out_dir, "temp_profile.dat"),
-            self.grid.r_edges.cpu().numpy() * self.scales.L,
-            n_e=self.state.zones.n_e.cpu().numpy(),
-        )
+        with tm.span("run.finalize"):
+            elapsed = (tm.read("run.finalize", self.state.time, float)
+                       + tm.read("run.finalize", self.state.dt, float))
+            self.outputs.write_spectrum(
+                os.path.join(self.out_dir, "spectrum.dat"), elapsed)
+            self.outputs.write_spectrum(
+                os.path.join(self.out_dir, "photons.dat"), elapsed,
+                photons=True)
+            self.outputs.write_light_curves(os.path.join(self.out_dir, "lc"))
+            self.outputs.write_temperature_profile(
+                os.path.join(self.out_dir, "temp_profile.dat"),
+                tm.read("run.finalize", self.grid.r_edges,
+                        tm.to_host).numpy() * self.scales.L,
+                n_e=tm.read("run.finalize", self.state.zones.n_e,
+                            tm.to_host).numpy(),
+            )
 
     # ---------------- diagnostics -------------------------------------
     def photon_fill_diagnostic(self):
@@ -535,7 +549,8 @@ class Simulation:
         if getattr(self, "_overflow_checked", None) is out:
             return getattr(self, "n_events_dropped", 0)
         self._overflow_checked = out
-        counts = out.events.count.cpu().numpy().reshape(-1)
+        counts = tm.read("step.events", out.events.count,
+                         tm.to_host).numpy().reshape(-1)
         cap = out.events.data.shape[0] // counts.shape[0]
         dropped = int(np.sum(np.maximum(counts - cap, 0)))
         if dropped:
@@ -764,66 +779,71 @@ def _step_impl(state: SimState, src: sourcing.SourceStatic, grid: Grid,
     zone_shard = world > 1 and run.zone_shard and nzr >= world
 
     # ---- 0. census replay: reset flight clocks (imcfield2d.f:117) -------
-    photons = state.photons._replace(dcen=torch.where(
-        state.photons.alive,
-        float(np.float32(scales.c)) * state.dt.to(f32), 0.0,
-    ))
-    zid = (torch.clamp(photons.jz, 0, nz - 1) * nr
-           + torch.clamp(photons.kr, 0, nr - 1))
-    ecens_prev = segment_sum(
-        torch.where(photons.alive, photons.w, 0.0), zid, nzr
-    ).reshape(nz, nr)
-    if mesh is not None:
-        ecens_prev = pmesh.all_gather_sum(mesh, ecens_prev)
+    with tm.span("step.census"):
+        photons = state.photons._replace(dcen=torch.where(
+            state.photons.alive,
+            float(np.float32(scales.c)) * state.dt.to(f32), 0.0,
+        ))
+        zid = (torch.clamp(photons.jz, 0, nz - 1) * nr
+               + torch.clamp(photons.kr, 0, nr - 1))
+        ecens_prev = segment_sum(
+            torch.where(photons.alive, photons.w, 0.0), zid, nzr
+        ).reshape(nz, nr)
+        if mesh is not None:
+            ecens_prev = pmesh.all_gather_sum(mesh, ecens_prev)
 
     # ---- 1. zone pass (imcgen2d): B, emissivities, budget ---------------
-    B = equipartition_b(zones.ep_switch, zones.tea, zones.tna, zones.n_e,
-                        zones.f_pair, zones.B_field,
-                        tables.gamma_bar.forward)
-    zones = zones._replace(B_field=B)
-    l_min = torch.minimum(grid.dz, grid.dr) * torch.ones_like(grid.vol)
-    em_zones = (zones.f_nt, zones.tea, zones.n_e, B, zones.amxwl, grid.vol,
-                grid.zone_surf, l_min, zones.f_pair)
-    if zone_shard:
-        em_zones = [pmesh.zone_slice(mesh, x) for x in em_zones]
-    ve = volume_em(tables.e_ph, tables.gnt, *em_zones[:-1], state.dt,
-                   scales, f_pair=em_zones[-1])
-    if zone_shard:
-        ve = pmesh.zone_gather(mesh, ve, nz, nr)[0]
+    with tm.span("step.zone_pass"):
+        B = equipartition_b(zones.ep_switch, zones.tea, zones.tna, zones.n_e,
+                            zones.f_pair, zones.B_field,
+                            tables.gamma_bar.forward)
+        zones = zones._replace(B_field=B)
+        l_min = torch.minimum(grid.dz, grid.dr) * torch.ones_like(grid.vol)
+        em_zones = (zones.f_nt, zones.tea, zones.n_e, B, zones.amxwl, grid.vol,
+                    grid.zone_surf, l_min, zones.f_pair)
+        if zone_shard:
+            em_zones = [pmesh.zone_slice(mesh, x) for x in em_zones]
+        ve = volume_em(tables.e_ph, tables.gnt, *em_zones[:-1], state.dt,
+                       scales, f_pair=em_zones[-1])
+        if zone_shard:
+            ve = pmesh.zone_gather(mesh, ve, nz, nr)[0]
     # every rank sources its share of nst, weighted over the global count
-    nst_eff = cfg.source.nst * max(cfg.source.split, 1)
-    budget = sourcing.compute_budget(
-        src, ve.eloss_tot, ecens_prev, state.ed_abs,
-        grid.area_lower, grid.area_upper, grid.area_inner, grid.area_outer,
-        state.dt, state.dt_prev, max(nst_eff // world, 1),
-        cfg.source.bias_cap, scales.sigma_sb,
-        dh_sentinel=bool(phys.dh_sentinel), replicas=world,
-    )
+    with tm.span("step.source"):
+        nst_eff = cfg.source.nst * max(cfg.source.split, 1)
+        budget = sourcing.compute_budget(
+            src, ve.eloss_tot, ecens_prev, state.ed_abs,
+            grid.area_lower, grid.area_upper, grid.area_inner, grid.area_outer,
+            state.dt, state.dt_prev, max(nst_eff // world, 1),
+            cfg.source.bias_cap, scales.sigma_sb,
+            dh_sentinel=bool(phys.dh_sentinel), replicas=world,
+        )
 
     # census population control (weight-window roulette)
-    if run.census_rr:
-        u_rr = torch.rand(n, generator=gen, device=dev)
-        photons, e_rr, n_rr = census_roulette(
-            photons, u_rr, run.census_rr_hi, run.census_rr_lo,
-            n_reserve=budget.n_new,
-        )
-    else:
-        e_rr = torch.zeros((), dtype=f32, device=dev)
-        n_rr = torch.zeros((), dtype=i32, device=dev)
+    with tm.span("step.census"):
+        if run.census_rr:
+            u_rr = torch.rand(n, generator=gen, device=dev)
+            photons, e_rr, n_rr = census_roulette(
+                photons, u_rr, run.census_rr_hi, run.census_rr_lo,
+                n_reserve=budget.n_new,
+            )
+        else:
+            e_rr = torch.zeros((), dtype=f32, device=dev)
+            n_rr = torch.zeros((), dtype=i32, device=dev)
 
-    # ---- 1c. zone sort (the flight kernel's windowed mode) --------------
-    # the windowed mode gives each 1024-slot tile a 2*WIN_Z-zone window:
-    # sort the census by zone bucket, dead slots last, so that emission
-    # fills the free tail in zone order and the tiles stay zone-coherent
-    tracker = select_tracker(cfg, world)
-    win_z = flight.window_z(nz, nr) if tracker == "kernel" else 0
-    if win_z:
-        photons = zone_sort(photons, nz, nr, win_z)
+        # ---- 1c. zone sort (the flight kernel's windowed mode) --------------
+        # the windowed mode gives each 1024-slot tile a 2*WIN_Z-zone window:
+        # sort the census by zone bucket, dead slots last, so that emission
+        # fills the free tail in zone order and the tiles stay zone-coherent
+        tracker = select_tracker(cfg, world)
+        win_z = flight.window_z(nz, nr) if tracker == "kernel" else 0
+        if win_z:
+            photons = zone_sort(photons, nz, nr, win_z)
 
     # ---- 1b. pair physics from the census field (imcgen2d.f:354-396) ----
     if phys.pair_switch:
-        pf = pair_fields(photons, zones, tables, pair_tables, grid, scales,
-                         nz, nr, mesh, zone_shard)
+        with tm.span("step.pairs"):
+            pf = pair_fields(photons, zones, tables, pair_tables, grid,
+                             scales, nz, nr, mesh, zone_shard)
         state = state._replace(k_gg=pf.k_gg, dn_pp=pf.dn_pp,
                                dne_pa=pf.dne_pa, dnp_pa=pf.dnp_pa)
         nph_raw, nph_fit = pf.nph_raw, pf.nph_fit
@@ -832,115 +852,119 @@ def _step_impl(state: SimState, src: sourcing.SourceStatic, grid: Grid,
         nph_fit = nph_raw
 
     # ---- 2. emit new photons --------------------------------------------
-    draws = sourcing.draw_emit_uniforms(gen, n, dev)
-    photons, e_src_lost = sourcing.emit(
-        photons, draws, budget, src, grid.r_edges, grid.z_edges,
-        grid.zone_surf, ve.eps_tot, ve.eps_th, ve.eloss_th, ve.eloss_tot,
-        tables.e_ph, state.dt, nz, nr, c_scaled=scales.c,
-    )
+    with tm.span("step.source"):
+        draws = sourcing.draw_emit_uniforms(gen, n, dev)
+        photons, e_src_lost = sourcing.emit(
+            photons, draws, budget, src, grid.r_edges, grid.z_edges,
+            grid.zone_surf, ve.eps_tot, ve.eps_th, ve.eloss_th, ve.eloss_tot,
+            tables.e_ph, state.dt, nz, nr, c_scaled=scales.c,
+        )
 
     # ---- 3. tracking ----------------------------------------------------
-    # pairs add 2 f_pair scatterers per electron (imctrk2d.f:164-168)
-    f_pair = zones.f_pair if phys.pair_switch else None
-    n_scat = zones.n_e * (1.0 + 2.0 * f_pair) if phys.pair_switch \
-        else zones.n_e
-    sigma_zone = zone_sigma_table(
-        tables.sigma_e, zones.f_nt, tables.gnt, zones.n_e, f_pair
-    ).reshape(nzr, -1).to(f32)
-    kappa_zone = ve.kappa_tot.reshape(nzr, -1).to(f32)
-    ctx = TrackContext(
-        r_edges=grid.r_edges.to(f32),
-        z_edges=grid.z_edges.to(f32),
-        opac_zone=torch.stack([sigma_zone, kappa_zone], dim=-1),
-        cdf_nt=zones.cdf_nt.reshape(nzr, -1).to(f32),
-        gnt=tables.gnt,
-        e_ph_log0=float(tables.e_ph_log0),
-        e_ph_dlog=float(tables.e_ph_dlog),
-        e_gg_log0=tables.e_gg_log0,
-        e_gg_dlog=tables.e_gg_dlog,
-        e_field_log0=torch.log(tables.e_field[0]),
-        e_field_dlog=torch.log(tables.e_field[1] / tables.e_field[0]),
-        hu=tables.hu,
-        mu_edges=tables.mu_edges,
-        lc_lo=tables.lc_lo,
-        lc_hi=tables.lc_hi,
-        tbbl_pos=src.tbb_lower > 0.0,
-        time=state.time,
-        dt=state.dt,
-        inv_c=float(np.float32(scales.inv_c)),
-        # 1/(n_eff sigma_T L F_tot): the stratified-scatter normalizer
-        # (Z = <sigma_KN ratio> = sig_s * inv_nsigt, the quadrature of
-        # zone_sigma_table)
-        inv_nsigt=1.0 / torch.clamp_min(
-            n_scat.reshape(-1).to(f32)
-            * float(np.float32(SIGMA_T * scales.L))
-            * torch.sum(zones.f_nt[..., :-1] * torch.diff(tables.gnt),
-                        dim=-1).reshape(-1).to(f32),
-            1e-38,
-        ),
-        kgg_zone=state.k_gg.reshape(nzr, -1).to(f32),
-        e_ref=tables.e_ref,
-        p_ref_t=tables.p_ref.T.contiguous() if phys.cr_sent else None,
-        w_abs_t=tables.w_abs.T.contiguous() if phys.cr_sent else None,
-    )
-    strat_icut = 0
-    if cfg.source.strat_split:
-        # the gnt index of the tail boundary gamma_c (gnt holds gamma - 1)
-        strat_icut = int(np.searchsorted(gnt_grid(g.num_nt),
-                                         cfg.source.strat_gamma_c - 1.0))
-        strat_icut = min(max(strat_icut, 1), g.num_nt - 1)
-    st = TrackStatics(
-        nz=nz, nr=nr, cr_sent=phys.cr_sent, rmin_positive=g.r_min > 1e-10,
-        max_iters=run.max_flight_iters,
-        max_scatter_tries=run.max_scatter_tries,
-        weight_floor=cfg.source.weight_floor, spec_switch=phys.spec_switch,
-        pair_switch=bool(phys.pair_switch),
-        strat_split=cfg.source.strat_split, strat_icut=strat_icut,
-        strat_p_max=cfg.source.strat_p_max,
-        strat_copies=cfg.source.strat_copies, tracker=tracker,
-    )
-    tallies = Tallies.zeros(nz, nr, g.num_nt, g.nphfield, g.n_gg, g.nmu,
-                            g.nphtotal, g.nph_lc, device=dev)
-    events = EventBuffer.empty(run.event_capacity, device=dev)
-    tallies = tallies._replace(
-        e_src_lost=tallies.e_src_lost + e_src_lost,
-        e_rr=tallies.e_rr + e_rr,
-        n_rr=tallies.n_rr + n_rr,
-    )
-    n_tracked = torch.sum(photons.alive.to(i32), dtype=i32)
-    photons, tallies, events = transport_step(
-        photons, tallies, events, gen, ctx, st)
-    tallies = census_tally(photons, tallies, ctx, st)
-    if mesh is not None:
-        # the reference's MPI_REDUCE trees (xec2d.f:325-399), in rank order
-        tallies, n_tracked = pmesh.all_gather_sum(mesh, (tallies, n_tracked))
+    with tm.span("step.track"):
+        # pairs add 2 f_pair scatterers per electron (imctrk2d.f:164-168)
+        f_pair = zones.f_pair if phys.pair_switch else None
+        n_scat = zones.n_e * (1.0 + 2.0 * f_pair) if phys.pair_switch \
+            else zones.n_e
+        sigma_zone = zone_sigma_table(
+            tables.sigma_e, zones.f_nt, tables.gnt, zones.n_e, f_pair
+        ).reshape(nzr, -1).to(f32)
+        kappa_zone = ve.kappa_tot.reshape(nzr, -1).to(f32)
+        ctx = TrackContext(
+            r_edges=grid.r_edges.to(f32),
+            z_edges=grid.z_edges.to(f32),
+            opac_zone=torch.stack([sigma_zone, kappa_zone], dim=-1),
+            cdf_nt=zones.cdf_nt.reshape(nzr, -1).to(f32),
+            gnt=tables.gnt,
+            e_ph_log0=tm.read("track.tables", tables.e_ph_log0, float),
+            e_ph_dlog=tm.read("track.tables", tables.e_ph_dlog, float),
+            e_gg_log0=tables.e_gg_log0,
+            e_gg_dlog=tables.e_gg_dlog,
+            e_field_log0=torch.log(tables.e_field[0]),
+            e_field_dlog=torch.log(tables.e_field[1] / tables.e_field[0]),
+            hu=tables.hu,
+            mu_edges=tables.mu_edges,
+            lc_lo=tables.lc_lo,
+            lc_hi=tables.lc_hi,
+            tbbl_pos=src.tbb_lower > 0.0,
+            time=state.time,
+            dt=state.dt,
+            inv_c=float(np.float32(scales.inv_c)),
+            # 1/(n_eff sigma_T L F_tot): the stratified-scatter normalizer
+            # (Z = <sigma_KN ratio> = sig_s * inv_nsigt, the quadrature of
+            # zone_sigma_table)
+            inv_nsigt=1.0 / torch.clamp_min(
+                n_scat.reshape(-1).to(f32)
+                * float(np.float32(SIGMA_T * scales.L))
+                * torch.sum(zones.f_nt[..., :-1] * torch.diff(tables.gnt),
+                            dim=-1).reshape(-1).to(f32),
+                1e-38,
+            ),
+            kgg_zone=state.k_gg.reshape(nzr, -1).to(f32),
+            e_ref=tables.e_ref,
+            p_ref_t=tables.p_ref.T.contiguous() if phys.cr_sent else None,
+            w_abs_t=tables.w_abs.T.contiguous() if phys.cr_sent else None,
+        )
+        strat_icut = 0
+        if cfg.source.strat_split:
+            # the gnt index of the tail boundary gamma_c (gnt holds gamma - 1)
+            strat_icut = int(np.searchsorted(gnt_grid(g.num_nt),
+                                             cfg.source.strat_gamma_c - 1.0))
+            strat_icut = min(max(strat_icut, 1), g.num_nt - 1)
+        st = TrackStatics(
+            nz=nz, nr=nr, cr_sent=phys.cr_sent, rmin_positive=g.r_min > 1e-10,
+            max_iters=run.max_flight_iters,
+            max_scatter_tries=run.max_scatter_tries,
+            weight_floor=cfg.source.weight_floor, spec_switch=phys.spec_switch,
+            pair_switch=bool(phys.pair_switch),
+            strat_split=cfg.source.strat_split, strat_icut=strat_icut,
+            strat_p_max=cfg.source.strat_p_max,
+            strat_copies=cfg.source.strat_copies, tracker=tracker,
+        )
+        tallies = Tallies.zeros(nz, nr, g.num_nt, g.nphfield, g.n_gg, g.nmu,
+                                g.nphtotal, g.nph_lc, device=dev)
+        events = EventBuffer.empty(run.event_capacity, device=dev)
+        tallies = tallies._replace(
+            e_src_lost=tallies.e_src_lost + e_src_lost,
+            e_rr=tallies.e_rr + e_rr,
+            n_rr=tallies.n_rr + n_rr,
+        )
+        n_tracked = torch.sum(photons.alive.to(i32), dtype=i32)
+        photons, tallies, events = transport_step(
+            photons, tallies, events, gen, ctx, st)
+        tallies = census_tally(photons, tallies, ctx, st)
+        if mesh is not None:
+            # the reference's MPI_REDUCE trees (xec2d.f:325-399), in rank order
+            tallies, n_tracked = pmesh.all_gather_sum(
+                mesh, (tallies, n_tracked))
 
     # ---- 4. FP electron update (update2d) -------------------------------
     zero = torch.zeros((), dtype=f32, device=dev)
     zero_i = torch.zeros((), dtype=i32, device=dev)
     dt_next = state.dt
     if not phys.t_const:
-        fp_args = (
-            flare_zones(zones, grid, phys.flare, state.time, scales),
-            tallies.n_field, tables, grid.vol, float(g.z_max), grid.dz,
-            state.dt, state.time, ve.eloss_sy, phys, scales)
-        fp_kw = dict(eloss_br=ve.eloss_br, dn_pp=state.dn_pp,
-                     dne_pa=state.dne_pa, dnp_pa=state.dnp_pa,
-                     coulomb=coulomb_tables)
-        fpr = (fp_zone_farm(mesh, fp_args, fp_kw) if zone_shard
-               else fp_step(*fp_args, **fp_kw))
-        # only apply after the field is established (ncycle > 0); the
-        # flare's tna / turb_lev are the FP solve's alone (update2d.f:558)
-        apply = ncycle > 0
-        zones_new = (fpr.zones._replace(tna=zones.tna,
-                                        turb_lev=zones.turb_lev)
-                     if apply else zones)
-        dT_max = fpr.dT_max if apply else zero
-        e_el_old, e_el_new = fpr.e_el_old, fpr.e_el_new
-        fp_sub = fpr.substeps
-        fp_inc = fpr.incomplete if apply else zero_i
-        if run.adaptive_dt and apply:
-            dt_next = adapt_dt(fpr.dt_new, grid, scales).to(state.dt.dtype)
+        with tm.span("step.fp"):
+            fp_args = (
+                flare_zones(zones, grid, phys.flare, state.time, scales),
+                tallies.n_field, tables, grid.vol, float(g.z_max), grid.dz,
+                state.dt, state.time, ve.eloss_sy, phys, scales)
+            fp_kw = dict(eloss_br=ve.eloss_br, dn_pp=state.dn_pp,
+                         dne_pa=state.dne_pa, dnp_pa=state.dnp_pa,
+                         coulomb=coulomb_tables)
+            fpr = (fp_zone_farm(mesh, fp_args, fp_kw) if zone_shard
+                   else fp_step(*fp_args, **fp_kw))
+            # only apply after the field is established (ncycle > 0); the
+            # flare's tna / turb_lev are the FP solve's alone (update2d.f:558)
+            apply = ncycle > 0
+            zones_new = (fpr.zones._replace(tna=zones.tna,
+                                            turb_lev=zones.turb_lev)
+                         if apply else zones)
+            dT_max = fpr.dT_max if apply else zero
+            e_el_old, e_el_new = fpr.e_el_old, fpr.e_el_new
+            fp_sub = fpr.substeps
+            fp_inc = fpr.incomplete if apply else zero_i
+            if run.adaptive_dt and apply:
+                dt_next = adapt_dt(fpr.dt_new, grid, scales).to(state.dt.dtype)
     else:
         zones_new = zones
         dT_max, e_el_old, e_el_new = zero, zero, zero

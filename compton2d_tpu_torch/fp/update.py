@@ -19,12 +19,14 @@ diagnostic only.
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from compton2d_tpu_torch import constants as cn
+from compton2d_tpu_torch import telemetry as tm
 from compton2d_tpu_torch.config import PhysicsConfig
 from compton2d_tpu_torch.units import Scales
 from compton2d_tpu_torch.fp.chang_cooper import chang_cooper_coeffs, pcr_solve
@@ -45,6 +47,12 @@ def zone_contract(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     chunk = max(1, ZONE_CHUNK_ELEMS // (b.shape[0] * b.shape[1]))
     return torch.cat([torch.sum(a[z0:z0 + chunk, None, :] * b[None], dim=-1)
                       for z0 in range(0, a.shape[0], chunk)])
+
+
+def _zero_last(t: torch.Tensor) -> None:
+    """``t[-1] = 0``: on a card, a copy of the host's 0 that waits for the
+    stream."""
+    t[-1] = 0.0
 
 
 class FPResult(NamedTuple):
@@ -185,7 +193,7 @@ def fp_step(
         -((gamma - inj.gauss_g) * (gamma - inj.gauss_g))
         / (2.0 * inj.gauss_sigma**2)
     )
-    gauss_prof[-1] = 0.0
+    tm.read("fp.upload", gauss_prof, _zero_last)
     if phys.fp_include_coulomb and coulomb is not None:
         # the e-p rows depend on the (fixed) proton temperature only
         dg_cp_t, disp_cp_t = coulomb.proton_rows(tna)
@@ -198,7 +206,8 @@ def fp_step(
     grow = torch.ones(Z, dtype=f32, device=dev)
     done = torch.zeros(Z, dtype=torch.bool, device=dev)
     # bounded substep loop; the condition is read on the host
-    while it < phys.fp_max_substeps and not bool(torch.all(done)):
+    while it < phys.fp_max_substeps and not tm.read(
+            "fp.done", torch.all(done), bool):
         te = th_e * cn.EMASS_KEV
         hr_total, gamma_R = cool_heat_rates(f, th_e, te)
         dT_tot = (k_dT * dt32) * hr_total / torch.clamp_min(
@@ -330,6 +339,7 @@ def fp_step(
         t_fp = torch.where(upd, torch.where(last, dt32, t_fp + d_t), t_fp)
         done = t_fp >= dt32
         it += 1
+    tm.count("fp.substeps", it)
 
     incomplete = torch.sum((valid & (t_fp < dt32)).to(i32), dtype=i32)
     te_new = torch.clamp(th_e * cn.EMASS_KEV, phys.temp_min, phys.temp_max)
@@ -366,9 +376,10 @@ def fp_step(
     sum_all = torch.clamp_min(torch.sum(f * wdg, dim=-1), 1e-30)
     amxwl_eff = torch.clamp(sum_th / sum_all, 0.0, 1.0)
     sum_e_mean = torch.sum(gamma * f * wdg, dim=-1) / sum_all
-    p_cand = torch.as_tensor(
-        np.arange(0.1, 10.01, 0.05, dtype=np.float32), device=dev,
-        dtype=f32)
+    p_cand = tm.read("fp.upload", np.arange(0.1, 10.01, 0.05,
+                                            dtype=np.float32),
+                     functools.partial(torch.as_tensor, device=dev,
+                                       dtype=f32))
     nt_mask = (idx[None, :] >= i_nt[:, None]) & (idx < num_nt - 1)
     y_c = gamma[None, :] / gmax_eff[:, None]
     base = torch.where(nt_mask & (y_c < 90.0),
@@ -407,7 +418,8 @@ def fp_step(
     return FPResult(
         zones=zones_new, dt_new=dt_new, dT_max=dT_max, e_el_old=e_el_old,
         e_el_new=e_el_new,
-        substeps=torch.tensor(it, dtype=i32, device=dev),
+        substeps=tm.read("fp.upload", it, functools.partial(
+            torch.tensor, dtype=i32, device=dev)),
         incomplete=incomplete,
     )
 

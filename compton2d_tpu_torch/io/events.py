@@ -29,13 +29,14 @@ from typing import List
 import numpy as np
 import torch
 
+from compton2d_tpu_torch import telemetry as tm
 from compton2d_tpu_torch.io import native
 
 
 def _to_host(arr) -> np.ndarray:
     """A torch tensor (on any device) or array-like as numpy."""
     if isinstance(arr, torch.Tensor):
-        return arr.detach().cpu().numpy()
+        return tm.read("outputs.events", arr.detach(), tm.to_host).numpy()
     return np.asarray(arr)
 
 
@@ -113,4 +114,5 @@ class EventArrayStore:
 
 def read_event_file(path: str) -> np.ndarray:
     """Read a reference-format event file into (n, 7) float64."""
-    return np.loadtxt(path).reshape(-1, 7)
+    with tm.span("outputs.read_events"):
+        return np.loadtxt(path).reshape(-1, 7)

@@ -40,6 +40,8 @@ from typing import Optional, Sequence, Tuple
 import torch
 import torch.distributed as dist
 
+from compton2d_tpu_torch import telemetry as tm
+
 SUM, MAX, MIN, CAT = "sum", "max", "min", "cat"
 
 
@@ -108,15 +110,16 @@ def exchange(mesh: PhotonMesh, parts: Sequence[Tuple[torch.Tensor, str]]
     buf = torch.cat(flat)
     on_device = buf.device
     if mesh.backend == "gloo":
-        buf = buf.cpu()
+        buf = tm.read("mesh.buffer", buf, tm.to_host)
     elif buf.is_cuda:
         torch.cuda.synchronize(buf.device)
     gathered = [torch.empty_like(buf) for _ in range(mesh.world)]
-    t0 = time.perf_counter()
-    dist.all_gather(gathered, buf)
-    if buf.is_cuda:
-        torch.cuda.synchronize(buf.device)
-    mesh.comm_s += time.perf_counter() - t0
+    with tm.span("mesh.exchange"):
+        t0 = time.perf_counter()
+        dist.all_gather(gathered, buf)
+        if buf.is_cuda:
+            torch.cuda.synchronize(buf.device)
+        mesh.comm_s += time.perf_counter() - t0
     mesh.comm_calls += 1
     mesh.comm_bytes += buf.numel()
     if mesh.exchange_sizes is not None:

@@ -6,8 +6,12 @@ with the harmonic index m drawn with probability 1/m^4 / zeta(4)
 """
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
+
+from compton2d_tpu_torch import telemetry as tm
 
 _ZETA4 = float(np.pi**4 / 90.0)
 _M_MAX = 64
@@ -26,7 +30,8 @@ def sample_planck(u4: torch.Tensor, rn: torch.Tensor,
                   T_keV: torch.Tensor) -> torch.Tensor:
     """Planck-distributed energies [keV] at temperatures ``T_keV``."""
     ap0 = -torch.sum(torch.log(u4), dim=-1)
-    cdf = torch.as_tensor(_CDF_M.astype(np.float32), device=rn.device)
+    cdf = tm.read("source.upload", _CDF_M.astype(np.float32),
+                  functools.partial(torch.as_tensor, device=rn.device))
     # count(cdf < rn * zeta4): cdf is strictly increasing
     m = torch.searchsorted(cdf, (rn * _ZETA4).contiguous()) + 1
     inv_m = 1.0 / m.to(torch.float32)

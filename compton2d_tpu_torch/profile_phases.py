@@ -1,14 +1,15 @@
-"""Per-phase time of the port's step on a CUDA card.
+"""Per-phase time of the port's step on a CUDA card, from the program's
+own telemetry (``compton2d_tpu_torch.telemetry``).
 
-Runs a configuration twice from the same seed: first plain, for the step
-time, then with every phase of the step wrapped in a timer that
-synchronises the card before and after it, for the breakdown (inclusive
-times: ``transport_step`` contains the flight kernel, ``_leak`` and
-``apply_scatter``; ``apply_scatter`` contains its ``scatter_stratified``
-sampler calls; ``pair_fields``, the pair physics of the census field,
-contains its ``hist2d``, ``nph_smooth``, ``dn_pp_from_field`` and
-``pa_rates``; ``zone_sort`` runs on grids above 1024 zones). Prints one
-JSON object::
+Runs a configuration twice from the same seed: first with telemetry off,
+for the step time, then with it on, for the breakdown: each span's calls
+and host and device ms a step (``step`` and its children ``step.census``,
+``step.zone_pass``, ``step.source``, ``step.pairs``, ``step.track`` with
+``track.tables``, ``track.flight``, ``track.leak`` and ``track.scatter``,
+``step.fp`` and ``step.outputs``), each host-read site's reads and host
+wait a step, the counts (FP substeps, tracking rounds, loop iterations)
+and the flight kernel's launches. The card is synchronised only at the
+ends of each run. Prints one JSON object::
 
   python -m compton2d_tpu_torch.profile_phases --config mrk421
   python -m compton2d_tpu_torch.profile_phases --config small_corona
@@ -31,40 +32,24 @@ legacy importer (8x4 zones with reflection, a flare and adaptive dt;
 10x5 zones lit by a diskgen file), 131072 slots, nst 60000; ``coulomb`` the
 benchmark-size corona with the Coulomb FP drift (``fp_include_coulomb``;
 its tables are built before the runs, outside the times); each for 2
-warm-up and ``--steps`` timed steps. Beside the times it prints the
-tracking rounds, the lower and outer-disk reflections, the lanes
-frozen with FLAG_WINDOW and the stragglers sent to census per step, the
-card's peak memory, and the flight kernel's own device time per step
-(CUDA events around each launch in the plain run, read after it).
+warm-up and ``--steps`` timed steps. Beside them it prints the
+tracking rounds, the lower and outer-disk reflections, the lanes frozen
+with FLAG_WINDOW and the stragglers sent to census per step, and the
+card's peak memory.
 """
 from __future__ import annotations
 
 import argparse
-import collections
 import json
 import time
 
 import torch
 
-from compton2d_tpu_torch import decks, driver, run_mrk421
+from compton2d_tpu_torch import decks, run_mrk421
+from compton2d_tpu_torch import telemetry as tm
 from compton2d_tpu_torch.bench import card_line
 from compton2d_tpu_torch.examples import small_corona
-from compton2d_tpu_torch.physics import pairs
-from compton2d_tpu_torch.transport import flight, tracking
-
-# (module, attribute) of each timed phase, as the step looks them up
-PHASES = (
-    (driver, "equipartition_b"), (driver, "volume_em"),
-    (driver.sourcing, "compute_budget"), (driver, "census_roulette"),
-    (driver, "zone_sort"),
-    (driver.sourcing, "emit"), (driver, "zone_sigma_table"),
-    (driver, "transport_step"), (flight, "flight_step"),
-    (tracking, "_leak"), (tracking, "apply_scatter"),
-    (tracking, "scatter_stratified"), (tracking, "segment_sum"),
-    (driver, "census_tally"), (driver, "fp_step"),
-    (driver, "pair_fields"), (driver, "hist2d"), (pairs, "nph_smooth"),
-    (pairs, "dn_pp_from_field"), (pairs, "pa_rates"),
-)
+from compton2d_tpu_torch.transport import flight
 
 
 def make_sim(config: str, device):
@@ -131,50 +116,19 @@ def main(argv=None):
 
     sim = make_sim(args.config, device)
     torch.cuda.reset_peak_memory_stats(device)
-    events = []
-    launch = flight._launch
-
-    def launch_timed(largs):
-        t0 = torch.cuda.Event(enable_timing=True)
-        t1 = torch.cuda.Event(enable_timing=True)
-        t0.record()
-        launch(largs)
-        t1.record()
-        events.append((t0, t1))
-
-    flight._launch = launch_timed
-    try:
-        wall, outs = drive(sim, args.config, args.steps, args.warm,
-                           on_timed=events.clear)
-    finally:
-        flight._launch = launch
+    wall, outs = drive(sim, args.config, args.steps, args.warm)
     n = len(outs)
     peak = torch.cuda.max_memory_allocated(device)
-    kernel_ms = sum(t0.elapsed_time(t1) for t0, t1 in events)
 
-    acc = collections.defaultdict(lambda: [0.0, 0])
-    originals = []
-
-    def timed(name, fn):
-        def wrapper(*a, **k):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = fn(*a, **k)
-            torch.cuda.synchronize()
-            acc[name][0] += time.perf_counter() - t0
-            acc[name][1] += 1
-            return out
-        return wrapper
-
-    for mod, name in PHASES:
-        originals.append((mod, name, getattr(mod, name)))
-        setattr(mod, name, timed(name, getattr(mod, name)))
+    tm.reset()
     try:
-        wall_w, outs_w = drive(make_sim(args.config, device), args.config,
-                               args.steps, args.warm, on_timed=acc.clear)
+        wall_t, outs_t = drive(make_sim(args.config, device), args.config,
+                               args.steps, args.warm, on_timed=tm.enable)
     finally:
-        for mod, name, fn in originals:
-            setattr(mod, name, fn)
+        tm.disable()
+    snap = tm.snapshot()
+    tm.reset()
+    n_t = len(outs_t)
     card = card_line(device)
     print(json.dumps({
         "config": args.config, "card": card, "steps": n,
@@ -191,12 +145,17 @@ def main(argv=None):
         "stragglers_per_step":
             sum(int(o.tallies.n_straggler) for o in outs) / n,
         "peak_memory_bytes": peak,
-        "flight_kernel_device_ms_per_step": kernel_ms / n,
-        "flight_launches_per_step": len(events) / n,
-        "ms_per_step_wrapped": 1e3 * wall_w / len(outs_w),
-        "phases_ms_per_step": {k: 1e3 * v[0] / len(outs_w)
-                               for k, v in acc.items()},
-        "calls_per_step": {k: v[1] / len(outs_w) for k, v in acc.items()},
+        "ms_per_step_telemetry": 1e3 * wall_t / n_t,
+        "spans_per_step": {
+            k: {"calls": v["calls"] / n_t, "host_ms": v["host_ms"] / n_t,
+                "device_ms": (None if v["device_ms"] is None
+                              else v["device_ms"] / n_t)}
+            for k, v in snap["spans"].items()},
+        "reads_per_step": {k: {"count": v["count"] / n_t,
+                               "wait_ms": v["wait_ms"] / n_t}
+                           for k, v in snap["reads"].items()},
+        "counts_per_step": {k: v / n_t for k, v in snap["counts"].items()},
+        "flight_launches": snap["launches"],
     }))
 
 

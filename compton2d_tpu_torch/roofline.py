@@ -1,6 +1,5 @@
-"""The byte and operation model of the port's tracking phase, and its
-reading against the measured phase (the counterpart of
-``tools/roofline.py``).
+"""The byte and operation model of the port's tracking phase (the
+counterpart of ``tools/roofline.py``).
 
 Two models, one byte count:
 
@@ -13,21 +12,8 @@ Two models, one byte count:
   writes the photon SoA once more), which times the rounds of a step
   gives the tracking phase's least time (:func:`tracking_bound_ms`;
   ``chip_smoke.py`` phase 3 reads it from the main path's run).
-
-:func:`analyze` measures the tracking phase by ablation (a step with the
-flight budget at 0 against a full one, on the card) and sets the model
-against it::
-
-  python -m compton2d_tpu_torch.roofline --steps 3
 """
 from __future__ import annotations
-
-import argparse
-import dataclasses
-import json
-import time
-
-import torch
 
 from compton2d_tpu_torch.transport import flight
 
@@ -118,58 +104,3 @@ def tracking_bound_ms(sim, rounds_per_step: float) -> float:
     """The tracking phase's least ms per step: its rounds' bytes at the
     HBM rate."""
     return 1e3 * rounds_per_step * round_bytes(sim) / PEAK_BYTES_S
-
-
-def _timed(sim, steps: int, warm: int = 2):
-    for _ in range(warm):
-        sim.step()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    rounds = hist = 0
-    for _ in range(steps):
-        out = sim.step()
-        rounds += int(out.tallies.trk_rounds)
-        hist += int(out.n_tracked)
-    torch.cuda.synchronize()
-    return (time.perf_counter() - t0) / steps, rounds / steps, hist / steps
-
-
-def analyze(steps: int = 3, device="cuda") -> dict:
-    """The bench corona's step, the same step with no flight iterations,
-    their difference (the tracking phase) against the round model."""
-    from compton2d_tpu_torch.e2e_gate import CELLS
-    from compton2d_tpu_torch.examples import small_corona
-
-    sim = small_corona(**CELLS["main_path"], device=device)
-    t_full, rounds, hist = _timed(sim, steps)
-    sim0 = sim.with_config(dataclasses.replace(
-        sim.cfg, run=dataclasses.replace(sim.cfg.run, max_flight_iters=0)))
-    t_none, _, _ = _timed(sim0, steps)
-    t_trk = t_full - t_none
-    model = rounds * round_bytes(sim)
-    achieved = model / max(t_trk, 1e-9)
-    return {
-        "config": "small_corona 8x4, 131072 slots, nst 60000",
-        "step_ms": 1e3 * t_full,
-        "no_flight_step_ms": 1e3 * t_none,
-        "tracking_ms": 1e3 * t_trk,
-        "rounds_per_step": rounds,
-        "histories_per_s": hist / t_full,
-        "round_bytes": round_bytes(sim),
-        "model_bytes_per_step": model,
-        "tracking_bound_ms": tracking_bound_ms(sim, rounds),
-        "achieved_bytes_per_s": achieved,
-        "pct_of_hbm_peak": 100.0 * achieved / PEAK_BYTES_S,
-    }
-
-
-def main():
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--steps", type=int, default=3)
-    ap.add_argument("--device", default="cuda")
-    args = ap.parse_args()
-    print(json.dumps(analyze(args.steps, args.device), indent=1))
-
-
-if __name__ == "__main__":
-    main()

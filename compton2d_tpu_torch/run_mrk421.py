@@ -28,6 +28,7 @@ import time
 import numpy as np
 import torch
 
+from compton2d_tpu_torch import telemetry as tm
 from compton2d_tpu_torch.examples import MRK421_BANDS, mrk421
 from compton2d_tpu_torch.io import native
 from compton2d_tpu_torch.io import postprocess as pp
@@ -80,68 +81,69 @@ def postprocess(events: np.ndarray, r_max: float, out_dir: str) -> dict:
     """SED (sed.dat) and light curves (lc.dat) of the event records, and
     the SED's peak summary. The TOF transform uses the grid's own blob
     radius."""
-    # SED: full run, log grid over the Doppler-boosted range; weights are
-    # in erg. Normalization follows pspt.c (isotropic-equivalent
-    # luminosity over the observed duration), then nuFnu at Earth.
-    e_edges = np.geomspace(1e-8, 1e11, 150)
-    tr = pp.doppler_transform(events, GAMMA_BULK, r_max)
-    t_obs_all = tr[:, 0]
-    t_span = float(np.percentile(t_obs_all, 99.5)) or 1.0
-    s = native.sed(events, GAMMA_BULK, r_max, 0.0, t_span, e_edges,
-               mu_range=MU_RANGE)
-    e_mid = np.sqrt(e_edges[1:] * e_edges[:-1])
-    de = np.diff(e_edges)
-    dmu_half = 0.5 * (MU_RANGE[1] - MU_RANGE[0])
-    l_e = s.flux / (t_span * de * dmu_half)     # pspt.c:318-321
-    nufnu_earth = e_mid * l_e / (4.0 * np.pi * D_L_CM**2)
-    nufnu = e_mid * s.flux / de   # shape-only column
-    np.savetxt(
-        os.path.join(out_dir, "sed.dat"),
-        np.column_stack([e_mid, nufnu, s.counts, nufnu_earth]),
-        header=(
-            "E_obs[keV]  E*F(E)[erg, shape]  n_records  "
-            f"nuFnu_earth[erg/cm^2/s @ d_L={D_L_CM:.3e}cm, "
-            f"mu={MU_RANGE[0]}..{MU_RANGE[1]}]"
-        ),
-        fmt="%14.6e",
-    )
+    with tm.span("outputs.postprocess"):
+        # SED: full run, log grid over the Doppler-boosted range; weights
+        # are in erg. Normalization follows pspt.c (isotropic-equivalent
+        # luminosity over the observed duration), then nuFnu at Earth.
+        e_edges = np.geomspace(1e-8, 1e11, 150)
+        tr = pp.doppler_transform(events, GAMMA_BULK, r_max)
+        t_obs_all = tr[:, 0]
+        t_span = float(np.percentile(t_obs_all, 99.5)) or 1.0
+        s = native.sed(events, GAMMA_BULK, r_max, 0.0, t_span, e_edges,
+                       mu_range=MU_RANGE)
+        e_mid = np.sqrt(e_edges[1:] * e_edges[:-1])
+        de = np.diff(e_edges)
+        dmu_half = 0.5 * (MU_RANGE[1] - MU_RANGE[0])
+        l_e = s.flux / (t_span * de * dmu_half)     # pspt.c:318-321
+        nufnu_earth = e_mid * l_e / (4.0 * np.pi * D_L_CM**2)
+        nufnu = e_mid * s.flux / de   # shape-only column
+        np.savetxt(
+            os.path.join(out_dir, "sed.dat"),
+            np.column_stack([e_mid, nufnu, s.counts, nufnu_earth]),
+            header=(
+                "E_obs[keV]  E*F(E)[erg, shape]  n_records  "
+                f"nuFnu_earth[erg/cm^2/s @ d_L={D_L_CM:.3e}cm, "
+                f"mu={MU_RANGE[0]}..{MU_RANGE[1]}]"
+            ),
+            fmt="%14.6e",
+        )
 
-    # light curves at the reference cadence
-    t_hi = np.percentile(t_obs_all, 99.5)
-    t_edges = np.arange(0.0, t_hi + T_BIN_OBS, T_BIN_OBS)
-    lc = native.light_curves(events, GAMMA_BULK, r_max, t_edges,
-                         np.asarray(MRK421_BANDS))
-    rate = lc.rate().sum(axis=1)   # erg/s, summed over mu bins
-    hdr = "t_mid[s] " + " ".join(
-        f"band{b}[{lo:g}-{hi:g}keV]"
-        for b, (lo, hi) in enumerate(MRK421_BANDS)
-    )
-    t_mid = 0.5 * (t_edges[1:] + t_edges[:-1])
-    np.savetxt(os.path.join(out_dir, "lc.dat"),
-               np.column_stack([t_mid, rate]), header=hdr, fmt="%14.6e")
+        # light curves at the reference cadence
+        t_hi = np.percentile(t_obs_all, 99.5)
+        t_edges = np.arange(0.0, t_hi + T_BIN_OBS, T_BIN_OBS)
+        lc = native.light_curves(events, GAMMA_BULK, r_max, t_edges,
+                                 np.asarray(MRK421_BANDS))
+        rate = lc.rate().sum(axis=1)   # erg/s, summed over mu bins
+        hdr = "t_mid[s] " + " ".join(
+            f"band{b}[{lo:g}-{hi:g}keV]"
+            for b, (lo, hi) in enumerate(MRK421_BANDS)
+        )
+        t_mid = 0.5 * (t_edges[1:] + t_edges[:-1])
+        np.savetxt(os.path.join(out_dir, "lc.dat"),
+                   np.column_stack([t_mid, rate]), header=hdr, fmt="%14.6e")
 
-    # split the SED at 1 MeV: synchrotron peak below, SSC peak above
-    lo_m = (e_mid < 1e3) & (nufnu > 0)
-    hi_m = (e_mid >= 1e3) & (nufnu > 0)
-    tev = (e_mid >= 1e9) & (e_mid < 1e10)
-    e_all = tr[:, 1]
-    return {
-        "sync_peak_keV_obs": (float(e_mid[lo_m][np.argmax(nufnu[lo_m])])
-                              if lo_m.any() else None),
-        "ssc_peak_keV_obs": (float(e_mid[hi_m][np.argmax(nufnu[hi_m])])
-                             if hi_m.any() else None),
-        "tev_band_nufnu": float(nufnu[tev].sum()),
-        "tev_band_records": int(s.counts[tev].sum()),
-        # all-angle TeV statistics (the observer cone is ~11% of the
-        # comoving sphere)
-        "tev_band_records_all_mu": int(np.sum((e_all >= 1e9)
-                                              & (e_all < 1e10))),
-        "gev100_records_all_mu": int(np.sum(e_all >= 1e8)),
-        "tev_band_nufnu_earth": (float(np.max(nufnu_earth[tev]))
-                                 if tev.any() else 0.0),
-        "sync_peak_nufnu_earth": float(
-            np.max(nufnu_earth[lo_m]) if lo_m.any() else 0.0),
-    }
+        # split the SED at 1 MeV: synchrotron peak below, SSC peak above
+        lo_m = (e_mid < 1e3) & (nufnu > 0)
+        hi_m = (e_mid >= 1e3) & (nufnu > 0)
+        tev = (e_mid >= 1e9) & (e_mid < 1e10)
+        e_all = tr[:, 1]
+        return {
+            "sync_peak_keV_obs": (float(e_mid[lo_m][np.argmax(nufnu[lo_m])])
+                                  if lo_m.any() else None),
+            "ssc_peak_keV_obs": (float(e_mid[hi_m][np.argmax(nufnu[hi_m])])
+                                 if hi_m.any() else None),
+            "tev_band_nufnu": float(nufnu[tev].sum()),
+            "tev_band_records": int(s.counts[tev].sum()),
+            # all-angle TeV statistics (the observer cone is ~11% of the
+            # comoving sphere)
+            "tev_band_records_all_mu": int(np.sum((e_all >= 1e9)
+                                                  & (e_all < 1e10))),
+            "gev100_records_all_mu": int(np.sum(e_all >= 1e8)),
+            "tev_band_nufnu_earth": (float(np.max(nufnu_earth[tev]))
+                                     if tev.any() else 0.0),
+            "sync_peak_nufnu_earth": float(
+                np.max(nufnu_earth[lo_m]) if lo_m.any() else 0.0),
+        }
 
 
 def sync_centroid_kev(sed_table: np.ndarray) -> float:

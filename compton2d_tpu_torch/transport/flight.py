@@ -47,6 +47,8 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from compton2d_tpu_torch import telemetry as tm
+
 TILE = 1024        # RNG tile: lane = slot % TILE, seed = seeds[slot // TILE]
 K_LOG = 8          # per-lane scatter-event log depth
 SCAN_S = 4         # CDF bins counted per SCT_A iteration
@@ -301,13 +303,15 @@ def build_flight_tables(
     if kgg_zone is None:
         kgg_zone = torch.zeros((opac_zone.shape[0], 2), dtype=f32,
                                device=dev)
-    log0_32 = torch.tensor(float(e_gg_log0), dtype=f32)
+    log0_32 = torch.tensor(tm.read("track.tables", e_gg_log0, float),
+                           dtype=f32)
     cdf = cdf_nt.to(f32).contiguous()
     num_nt = cdf.shape[1]
     if num_nt >= 65535:
         raise ValueError(f"num_nt={num_nt}: the packed guide holds uint16 "
                          "counts, so num_nt must be below 65535")
-    u_edges = torch.as_tensor(guide_u_edges(), device=dev)
+    u_edges = tm.read("track.tables", guide_u_edges(),
+                      functools.partial(torch.as_tensor, device=dev))
     # exact compare-count (the CDF need not be bitwise monotone)
     guide = torch.sum(
         cdf[:, :, None] < u_edges[None, None, :], dim=1, dtype=torch.int32
@@ -341,7 +345,8 @@ def build_flight_tables(
         e_ph_log0=float(np.float32(e_ph_log0)),
         e_ph_dlog=float(np.float32(e_ph_dlog)),
         e_gg_log0=float(log0_32),
-        e_gg_dlog=float(np.float32(float(e_gg_dlog))),
+        e_gg_dlog=float(np.float32(tm.read("track.tables", e_gg_dlog,
+                                           float))),
         e_gg0=float(torch.exp(log0_32)),
     )
 
@@ -1012,7 +1017,8 @@ def _result(prep: _Prepared) -> FlightResult:
         e=o["e"], w=o["w"], r=o["r"], z=o["z"], mu=o["mu"],
         cphi=o["cphi"], sphi=o["sphi"], dcen=o["dcen"], jz=o["jz"],
         kr=o["kr"], alive=o["alive"], mode=o["mode"], flag=o["flag"],
-        jn=o["jn"], kn=o["kn"], it_used=int(o["it"].max()),
+        jn=o["jn"], kn=o["kn"],
+        it_used=tm.read("track.it_used", o["it"].max(), int),
         ekill=torch.sum(o["ekill"]), esct=torch.sum(o["esct"]),
         epair=torch.sum(o["epair"]), sct_cnt=o["cnt"],
         tally=tally, iglog=o["iglog"], delog=o["delog"],

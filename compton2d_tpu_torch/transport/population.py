@@ -11,8 +11,11 @@ bucket for the flight kernel's windowed mode.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
+from compton2d_tpu_torch import telemetry as tm
 from compton2d_tpu_torch.state import PhotonArray
 
 
@@ -60,8 +63,8 @@ def census_roulette(photons: PhotonArray, u: torch.Tensor,
     i32 = torch.int32
     n_alive = torch.sum(photons.alive.to(i32), dtype=i32)
     trigger = n_alive > int(occupancy_hi * n)
-    target = torch.tensor(occupancy_lo * n, dtype=torch.float32,
-                          device=u.device)
+    target = tm.read("census.upload", occupancy_lo * n, functools.partial(
+        torch.tensor, dtype=torch.float32, device=u.device))
     if n_reserve is not None:
         need = n_reserve.to(i32)
         trigger = trigger | (n - n_alive < need)
@@ -75,7 +78,7 @@ def census_roulette(photons: PhotonArray, u: torch.Tensor,
         )
     zero_e = torch.zeros((), dtype=torch.float32, device=u.device)
     zero_n = torch.zeros((), dtype=i32, device=u.device)
-    if not bool(trigger):
+    if not tm.read("census.trigger", trigger, bool):
         return photons, zero_e, zero_n
     ph = photons
     wc = _roulette_weight(ph.w, ph.alive, target)

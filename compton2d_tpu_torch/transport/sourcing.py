@@ -13,12 +13,14 @@ reference lerps a 4096-knot quantile table.
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from compton2d_tpu_torch import constants as cn
+from compton2d_tpu_torch import telemetry as tm
 from compton2d_tpu_torch.physics.planck import (
     draw_planck_uniforms,
     sample_planck,
@@ -263,8 +265,10 @@ def emit(
     is_file = tbb_here < 0.0
     r_b = where(is_in, re[0], where(is_out, re[nr], r_ann))
     z_b = where(is_low, 0.0, where(is_up, ze[nz], z_unif))
-    mu_low = where(is_file, torch.tensor(beam_mu, dtype=f32,
-                                         device=u.device), u[6])
+    mu_low = where(is_file, tm.read("source.upload", beam_mu,
+                                    functools.partial(
+                                        torch.tensor, dtype=f32,
+                                        device=u.device)), u[6])
     mu_b = where(is_low, mu_low, where(is_up, -u[6], mu_iso))
     phi_b = where(is_in, phi_outw, where(is_out, phi_inw, phi_full))
 

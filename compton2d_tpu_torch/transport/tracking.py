@@ -28,12 +28,14 @@ compare-count binning and bisections become ``searchsorted``.
 """
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import Callable, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
+from compton2d_tpu_torch import telemetry as tm
 from compton2d_tpu_torch.constants import C_LIGHT
 from compton2d_tpu_torch.state import EventBuffer, PhotonArray, Tallies
 from compton2d_tpu_torch.transport import flight, geometry
@@ -177,7 +179,8 @@ def generator_draws(seed: int, max_tries: int) -> ScatterDrawFn:
 def round_seed(gen: torch.Generator, device) -> int:
     """A round's scatter stream seed (the reference's k_scat), from
     ``gen``: one host read."""
-    return int(torch.randint(0, 1 << 62, (1,), generator=gen, device=device))
+    return tm.read("track.seed", torch.randint(
+        0, 1 << 62, (1,), generator=gen, device=device), int)
 
 
 class LoopDraws(NamedTuple):
@@ -228,7 +231,9 @@ def segment_sum(vals: torch.Tensor, idx: torch.Tensor,
     (no float atomics)."""
     idx = idx.long()
     order = torch.argsort(idx, stable=True)
-    lengths = torch.bincount(idx, minlength=n_seg)
+    # bincount reads its smallest and largest index back to size its result
+    lengths = tm.read("segment.lengths", idx, functools.partial(
+        torch.bincount, minlength=n_seg))
     return torch.segment_reduce(vals[order], "sum", lengths=lengths,
                                 axis=0, unsafe=True, initial=0.0)
 
@@ -332,24 +337,27 @@ def _track_kernel(photons, tallies, events, gen, ctx, st):
     n = photons.n_slots
     num_nt = ctx.cdf_nt.shape[1]
     inline = not st.strat_split
-    ftab = flight.build_flight_tables(
-        ctx.opac_zone, ctx.cdf_nt, ctx.gnt, ctx.r_edges, ctx.z_edges,
-        ctx.e_ph_log0, ctx.e_ph_dlog, kgg_zone=ctx.kgg_zone,
-        e_gg_log0=ctx.e_gg_log0, e_gg_dlog=ctx.e_gg_dlog,
-    )
+    with tm.span("track.tables"):
+        ftab = flight.build_flight_tables(
+            ctx.opac_zone, ctx.cdf_nt, ctx.gnt, ctx.r_edges, ctx.z_edges,
+            ctx.e_ph_log0, ctx.e_ph_dlog, kgg_zone=ctx.kgg_zone,
+            e_gg_log0=ctx.e_gg_log0, e_gg_dlog=ctx.e_gg_dlog,
+        )
     ph, tl, ev = photons, tallies, events
     rnd, it_tot = 0, 0
     while (rnd < st.max_iters and it_tot < st.max_iters
-           and bool(torch.any(ph.alive & (ph.dcen > 0.0)))):
+           and tm.read("track.more", torch.any(ph.alive & (ph.dcen > 0.0)),
+                       bool)):
         seeds = draw_seeds(gen, n // flight.TILE, ph.e.device)
-        res = flight.flight_step(
-            ph.e, ph.w, ph.w0, ph.r, ph.z, ph.mu, ph.cphi, ph.sphi,
-            ph.dcen, ph.jz, ph.kr, ph.alive, ftab, seeds,
-            nz=st.nz, nr=st.nr, weight_floor=float(st.weight_floor),
-            max_iters=int(st.max_iters),
-            max_tries=int(st.max_scatter_tries), inline_scatter=inline,
-            pair_switch=bool(st.pair_switch),
-        )
+        with tm.span("track.flight"):
+            res = flight.flight_step(
+                ph.e, ph.w, ph.w0, ph.r, ph.z, ph.mu, ph.cphi, ph.sphi,
+                ph.dcen, ph.jz, ph.kr, ph.alive, ftab, seeds,
+                nz=st.nz, nr=st.nr, weight_floor=float(st.weight_floor),
+                max_iters=int(st.max_iters),
+                max_tries=int(st.max_scatter_tries), inline_scatter=inline,
+                pair_switch=bool(st.pair_switch),
+            )
         ph = ph._replace(
             e=res.e, w=res.w, r=res.r, z=res.z, mu=res.mu, cphi=res.cphi,
             sphi=res.sphi, dcen=res.dcen, jz=res.jz, kr=res.kr,
@@ -383,21 +391,24 @@ def _track_kernel(photons, tallies, events, gen, ctx, st):
             # the round's scatter stream (the reference's k_scat)
             scat_seed = round_seed(gen, ph.e.device)
         leak_mask = (res.flag == flight.FLAG_LEAK) & ph.alive
-        if bool(torch.any(leak_mask)):
-            draws = (draw_leak_uniforms(gen, n, ph.e.device) if st.cr_sent
-                     else None)
-            ph, tl, ev = _leak(ph, tl, ev, leak_mask, res.jn, res.kn, ctx,
-                               st, draws)
+        if tm.read("track.leak", torch.any(leak_mask), bool):
+            with tm.span("track.leak"):
+                draws = (draw_leak_uniforms(gen, n, ph.e.device)
+                         if st.cr_sent else None)
+                ph, tl, ev = _leak(ph, tl, ev, leak_mask, res.jn, res.kn,
+                                   ctx, st, draws)
         if not inline:
             sct = (res.flag == flight.FLAG_SCATTER) & ph.alive
-            if bool(torch.any(sct)):
-                zid = (torch.clamp(ph.jz, 0, st.nz - 1) * st.nr
-                       + torch.clamp(ph.kr, 0, st.nr - 1))
-                ph, tl = apply_scatter(
-                    ph, tl, sct, zid, generator_draws(
-                        scat_seed, int(st.max_scatter_tries)), ctx, st)
+            if tm.read("track.scatter", torch.any(sct), bool):
+                with tm.span("track.scatter"):
+                    zid = (torch.clamp(ph.jz, 0, st.nz - 1) * st.nr
+                           + torch.clamp(ph.kr, 0, st.nr - 1))
+                    ph, tl = apply_scatter(
+                        ph, tl, sct, zid, generator_draws(
+                            scat_seed, int(st.max_scatter_tries)), ctx, st)
         rnd += 1
         it_tot += res.it_used
+    tm.count("track.rounds", rnd)
     return ph, tl, ev, rnd
 
 
@@ -411,10 +422,12 @@ def _track_loop(photons, tallies, events, gen, ctx, st):
     n, dev = ph.n_slots, ph.e.device
     it = 0
     while (it < st.max_iters
-           and bool(torch.any(ph.alive & (ph.dcen > 0.0)))):
+           and tm.read("loop.more", torch.any(ph.alive & (ph.dcen > 0.0)),
+                       bool)):
         ph, tl, ev = loop_iteration(ph, tl, ev, ctx, st,
                                     generator_loop_draws(gen, n, dev, st))
         it += 1
+    tm.count("loop.iterations", it)
     return ph, tl, ev, it
 
 
@@ -520,13 +533,13 @@ def loop_iteration(ph: PhotonArray, tl: Tallies, ev: EventBuffer,
     ph = ph._replace(jz=where(hop, g.jnew, ph.jz),
                      kr=where(hop, g.knew, ph.kr))
     leak = cross & ~in_dom
-    if bool(torch.any(leak)):
+    if tm.read("loop.leak", torch.any(leak), bool):
         ph, tl, ev = _leak(ph, tl, ev, leak, g.jnew, g.knew, ctx, st,
                            draws.leak() if st.cr_sent else None)
 
     # ---- Compton scatter (imctrk2d.f:580-684) ---------------------------
     sct = upd & (ikind == 3) & ph.alive
-    if bool(torch.any(sct)):
+    if tm.read("loop.scatter", torch.any(sct), bool):
         ph, tl = apply_scatter(ph, tl, sct, zid, draws.scatter, ctx, st)
     return ph, tl, ev
 
@@ -551,7 +564,8 @@ def apply_scatter(ph: PhotonArray, tl: Tallies, sct: torch.Tensor,
     nzr = st.nz * st.nr
     num_nt = ctx.cdf_nt.shape[1]
     m_cp = max(int(st.strat_copies), 1)
-    idx = torch.nonzero(sct).reshape(-1)           # scattering slots
+    # scattering slots
+    idx = tm.read("scatter.lanes", sct, torch.nonzero).reshape(-1)
     z = zid[idx].long()
     e_pre, mu_pre = ph.e[idx], ph.mu[idx]
     cphi_pre, sphi_pre = ph.cphi[idx], ph.sphi[idx]
@@ -560,7 +574,8 @@ def apply_scatter(ph: PhotonArray, tl: Tallies, sct: torch.Tensor,
     c = cdf_rows[:, st.strat_icut]
     p_tail = torch.clamp(1.0 - c, 0.0, 1.0)
     want = (p_tail > st.strat_p_min) & (p_tail <= st.strat_p_max)
-    free_slots = torch.nonzero(~ph.alive).reshape(-1)   # slot of free rank
+    free_slots = tm.read("scatter.lanes", ~ph.alive,
+                         torch.nonzero).reshape(-1)   # slot of free rank
     rank = torch.cumsum(want.to(torch.int32), dim=0) - 1
     placed = want & ((rank + 1) * m_cp <= free_slots.shape[0])
 
@@ -586,16 +601,19 @@ def apply_scatter(ph: PhotonArray, tl: Tallies, sct: torch.Tensor,
         sphi=ph.sphi.index_copy(0, idx, res_p.sphi),
     )
 
-    pl = torch.nonzero(placed).reshape(-1)         # ranks 0..n_placed-1
+    pl = tm.read("scatter.lanes", placed,
+                 torch.nonzero).reshape(-1)     # ranks 0..n_placed-1
     n_pl = pl.shape[0]
     if n_pl:
         # copy m of the parent of rank j goes to the free slot of rank
         # j * M + m; copies are laid out (M, n_placed), copy-major
         slots = free_slots[:n_pl * m_cp].reshape(n_pl, m_cp).t().reshape(-1)
-        m_lo = torch.tensor([m * 1.0 / m_cp for m in range(m_cp)],
-                            dtype=f32, device=c.device)[:, None]
-        m_hi = torch.tensor([(m + 1.0) / m_cp for m in range(m_cp)],
-                            dtype=f32, device=c.device)[:, None]
+        upload = functools.partial(torch.tensor, dtype=f32, device=c.device)
+        m_lo = tm.read("scatter.upload",
+                       [m * 1.0 / m_cp for m in range(m_cp)], upload)[:, None]
+        m_hi = tm.read("scatter.upload",
+                       [(m + 1.0) / m_cp for m in range(m_cp)],
+                       upload)[:, None]
         cp = c[pl][None, :]
         u_lo = (cp + (1.0 - cp) * m_lo).reshape(-1)
         last = torch.arange(m_cp, device=c.device)[:, None] == m_cp - 1
@@ -648,7 +666,7 @@ def _apply_rejection_scatter(ph, tl, sct, zid, draw, ctx, st):
     and n_esp."""
     nzr = st.nz * st.nr
     num_nt = ctx.cdf_nt.shape[1]
-    idx = torch.nonzero(sct).reshape(-1)
+    idx = tm.read("scatter.lanes", sct, torch.nonzero).reshape(-1)
     z = zid[idx].long()
     w_old = ph.w[idx]
     res = scatter(ph.e[idx], ph.mu[idx], ph.cphi[idx], ph.sphi[idx],
@@ -724,7 +742,7 @@ def _leak(ph: PhotonArray, tl: Tallies, ev: EventBuffer, mask, jnew, knew,
     def reflect(sel, u_cdf, u_e):
         """Sample the reflection of the lanes ``sel`` only (one host read
         of their count): (slots, e_new, w_new)."""
-        idx = torch.nonzero(sel).reshape(-1)
+        idx = tm.read("leak.lanes", sel, torch.nonzero).reshape(-1)
         e_new, w_new = sample_reflection(
             ph.e[idx], ph.w[idx], u_cdf[idx], u_e[idx], ctx.e_ref,
             ctx.p_ref_t, ctx.w_abs_t)

@@ -367,3 +367,92 @@ def test_deck_step_on_the_card_against_the_plain_path(card, name,
         assert int(out_k.tallies.n_reflect_lower) > 0
     else:
         assert x_k == x_p == 0.0
+
+
+def _tiny_cell(name, root, **grid):
+    """The configuration and zones of benchmark cell ``name`` at the tiny
+    sizes of ``benchmark/tests/conftest.py`` (files written under
+    ``root``), with the grid's keys ``grid`` changed."""
+    import importlib.util
+    import shutil
+    import sys
+    from pathlib import Path
+
+    bench = Path(__file__).resolve().parent.parent / "benchmark"
+    shutil.copytree(bench, root / "benchmark", ignore=shutil.ignore_patterns(
+        "tests", "__pycache__"))
+    shutil.copy(bench.parent / "BENCHMARK.json", root)
+    spec = importlib.util.spec_from_file_location(
+        "bench_tests_conftest", bench / "tests" / "conftest.py")
+    conf = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(conf)
+    conf.tiny_files(root / "benchmark")
+    if str(bench) not in sys.path:
+        sys.path.insert(0, str(bench))
+    from harness import specs
+
+    w = specs.load_workload(name, root / "benchmark")
+    c = specs.load_config(w["config"], root / "benchmark")
+    c["grid"].update(grid)
+    return specs.sim_config(c, w, 2 ** 31 + 3)
+
+
+@pytest.mark.parametrize("cell, grid", [
+    ("tiny_blob.run", {}), ("tiny_corona.evolve", {}),
+    ("tiny_corona.evolve", dict(nz=40, nr=30))])
+def test_every_sync_of_a_step_is_a_counted_read(card, cell, grid,
+                                                tmp_path):
+    """Under ``torch.cuda.set_sync_debug_mode("warn")`` every synchronising
+    call of a step (after one warm step; the blob with its event file and
+    outputs; the corona also on a 40x30 grid, in the kernel's windowed
+    mode) happens inside ``telemetry.read``, and the reads in which the
+    card synchronised are all the reads the telemetry counts (one read
+    may synchronise more than once: ``torch.bincount`` reads back its
+    smallest and its largest index)."""
+    import traceback
+    import warnings
+
+    from compton2d_tpu_torch import telemetry as tm
+    from compton2d_tpu_torch.driver import Simulation
+
+    cfg, zones = _tiny_cell(cell, tmp_path, **grid)
+    sim = Simulation(cfg, zones, device=card)
+    if cell == "tiny_blob.run":
+        sim.attach_outputs(str(tmp_path / "out"))
+    sim.step()
+    torch.cuda.synchronize()
+    synced, loose = set(), []
+
+    def hook(message, category, filename, lineno, file=None, line=None):
+        if "synchronizing" not in str(message):
+            return
+        stack = traceback.extract_stack()[:-1]
+        if any(f.name == "read" and f.filename.endswith("telemetry.py")
+               for f in stack):
+            # the reads counted so far number the read in progress
+            synced.add(sum(c for c, _ in tm._reads.values()))
+        else:
+            loose.append(" < ".join(f"{f.filename.rsplit('/', 1)[-1]}:"
+                                    f"{f.lineno}" for f in stack[-4:][::-1]))
+
+    tm.reset()
+    tm.enable()
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("always")
+            warnings.showwarning = hook
+            torch.cuda.set_sync_debug_mode("warn")
+            # a warning the card had kept from before the step is not its
+            synced.clear()
+            loose.clear()
+            try:
+                sim.step()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+    finally:
+        tm.disable()
+    reads = tm.snapshot()["reads"]
+    tm.reset()
+    assert not loose, loose[:20]
+    n = sum(r["count"] for r in reads.values())
+    assert synced == set(range(n)) and n > 0, (sorted(synced), reads)

@@ -8,7 +8,8 @@ Phases (any failure raises and the script exits non-zero):
 
 1. card and build: the card's name and power limit, the torch / CUDA
    versions, and the nvcc build of ``csrc/flight.cu`` for sm_90a with
-   ptxas's registers, stack and spills of each kernel instance;
+   ptxas's registers, stack and spills of each kernel instance, and of
+   ``csrc/fp_substeps.cu``;
 2. the flight kernel in its inline-scatter mode against its plain
    PyTorch version on the card, at the main path's shapes (131072 slots,
    8x4 zones, 400 energy and 200 gamma bins) with inputs made by numpy
@@ -194,6 +195,23 @@ Phases (any failure raises and the script exits non-zero):
    transport_step; and "on" refusing that grid (NotImplementedError); (d)
    the main path at 130000 slots under "auto": 2 steps on the loop with
    their audit.
+13. the FP substep kernel (``csrc/fp_substeps.cu``, one launch a step)
+   on both benchmark cells' configurations as the port builds them
+   (``compare_fp.cell_sim``): the Mrk 421 dense run (phase 4's: 10x4
+   zones, num_nt 200, nphfield 400) from t = 0, whose zones take from a
+   few to some 150 substeps, and the 99x99 corona (large_corona) after
+   its 4 set-up steps. The launch count, set to 0 before the cell's
+   main-path steps (5 and 2), must equal their FP steps. On the last
+   step's fp_step inputs the kernel against the plain substep loop
+   (``compare_fp.compare``): per-zone substep counts and incomplete
+   zones equal, tea and f_nt within 2e-6 (the benchmark check's gap
+   measures); then the kernel on the device alone (CUDA events around
+   20 launches) beside its bound (``roofline.fp_kernel_bound``: the
+   zone-substeps it ran), fp_step with the kernel and with the plain
+   loop (CUDA events around each call, medians of FP_TURNS in turns)
+   beside fp_step's bound (``roofline.fp_bound``: the benchmark's
+   ``fp_roofline_pct`` model), and ptxas's registers and shared memory.
+   Phase 2's main path also counts one FP kernel launch a step.
 
 From phase 2 to phase 11 every Simulation built in this process (and in
 phase 9's ranks) and every step it takes must select the flight kernel
@@ -241,11 +259,13 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from compton2d_tpu_torch import (bench, collectives, decks, driver, dryrun,
-                                 e2e_gate, obs_compare, roofline, run_mrk421)
+from compton2d_tpu_torch import (bench, collectives, compare_fp, decks,
+                                 driver, dryrun, e2e_gate, kernel_build,
+                                 obs_compare, roofline, run_mrk421)
 from compton2d_tpu_torch.config import RunConfig
 from compton2d_tpu_torch.constants import SIGMA_THOMSON
 from compton2d_tpu_torch.examples import corona_config, small_corona
+from compton2d_tpu_torch.fp import update
 from compton2d_tpu_torch.io import checkpoint, native
 from compton2d_tpu_torch.parallel import distributed
 from compton2d_tpu_torch.physics import coulomb
@@ -703,6 +723,7 @@ def phase_main_path(device, card: str) -> int:
     sim = bench_sim(device)
     outs = []
     flight.reset_launch_counts()
+    update.reset_launch_counts()
     for _ in range(WARM_STEPS):
         outs.append(sim.step())
     torch.cuda.synchronize()
@@ -714,6 +735,12 @@ def phase_main_path(device, card: str) -> int:
     launches = flight.LAUNCHES
     if launches <= 0:
         raise AssertionError("the main path launched no flight kernel")
+    fp_launches = update.launch_counts()["fp_substeps"]
+    log(f"main path: {fp_launches} FP substep kernel launches in "
+        f"{len(outs)} steps")
+    if fp_launches != len(outs):
+        raise AssertionError("the main path's FP steps did not each launch "
+                             "the FP substep kernel once")
     if (flight.STRAT_LAUNCHES or flight.PAIR_LAUNCHES or flight.WINDOW_LAUNCHES
             or flight.GLOBAL_LAUNCHES):
         raise AssertionError("small_corona launched the strat, pair or "
@@ -2626,6 +2653,97 @@ def phase_loop(device, card: str, select) -> int:
     return b1
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the FP substep kernel
+# ---------------------------------------------------------------------------
+# each cell's configuration (compare_fp.CELLS) and the main-path steps
+# run after its set-up, the kernel compared on the last one's inputs
+FP_CELLS = (("mrk421", 5), ("large_corona", 2))
+
+
+def fp_events_ms(fn, turns: int) -> list:
+    """CUDA events around each of ``turns`` calls of ``fn``, after one."""
+    fn()
+    out = []
+    for _ in range(turns):
+        torch.cuda.synchronize()
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        fn()
+        t1.record()
+        torch.cuda.synchronize()
+        out.append(t0.elapsed_time(t1))
+    return out
+
+
+def phase_fp(device, card: str) -> list:
+    """Phase 13 (module docstring): the kernel's launches on each cell's
+    main path, the kernel against the plain loop and its times; returns
+    the kernels line's entry of each cell."""
+    update.build()
+    log(f"fp substep kernel: {update.ptxas_report()}; a block of "
+        f"{update.block_threads(200)} threads at num_nt 200, "
+        f"{update.shared_bytes(update.block_threads(200), 512)} bytes of "
+        "shared memory")
+    entries = []
+    for name, steps in FP_CELLS:
+        sim, setup = compare_fp.cell_sim(name, device)
+        sim.run(setup)
+        update.reset_launch_counts()
+        recorded = compare_fp.fp_args(sim, steps)
+        torch.cuda.synchronize()
+        launches = update.launch_counts()["fp_substeps"]
+        log(f"fp {name}: {launches} kernel launches in {steps} main-path "
+            f"steps after {setup} set-up steps ({len(recorded)} FP steps)")
+        if not launches == len(recorded) == steps:
+            raise AssertionError(f"fp {name}: {launches} launches, "
+                                 f"{len(recorded)} FP steps in {steps}")
+        args, kw = recorded[-1]
+        c = compare_fp.compare(args, kw)
+        torch.cuda.synchronize()
+        log(compare_fp.describe(c, f"fp {name} step {setup + steps - 1}"))
+        bad = compare_fp.departures(c)
+        if bad:
+            raise AssertionError(f"fp {name}: the kernel departs from the "
+                                 f"plain loop: {bad}")
+        kernel_ms = events_ms(update.launch_only(c.loop))
+        step_k, step_p = [], []
+        for turn in range(FP_TURNS):
+            pair = [("k", None), ("p", update.substep_loop_reference)]
+            for which, loop in (pair if turn % 2 == 0 else pair[::-1]):
+                ms = fp_events_ms(
+                    lambda: compare_fp.solve(args, kw, loop), 1)[0]
+                (step_k if which == "k" else step_p).append(ms)
+        nz, nr, num_nt = args[0].f_nt.shape
+        zone_substeps = int(c.count.sum())
+        bound = roofline.fp_kernel_bound(nz * nr, num_nt, zone_substeps)
+        step_bound = roofline.fp_bound(nz * nr, num_nt, args[1].shape[-1],
+                                       int(c.plain.substeps))
+        ms_k, ms_p = statistics.median(step_k), statistics.median(step_p)
+        log(f"fp {name} on {card}: kernel {kernel_ms:.4f} ms on the device "
+            f"alone, bound {bound['bound_ms']:.6f} ms by {bound['bound_by']} "
+            f"({bound['bytes']} bytes, {bound['ops']} operations for "
+            f"{zone_substeps} zone-substeps), "
+            f"{100 * bound['bound_ms'] / kernel_ms:.4f}% of it; fp_step "
+            f"{ms_k:.3f} ms with the kernel, {ms_p:.3f} ms with the plain "
+            f"loop (medians of {FP_TURNS} in turns: "
+            f"{['%.3f' % t for t in step_k]}, "
+            f"{['%.3f' % t for t in step_p]}), fp_step's bound (the "
+            f"benchmark's model) {step_bound['bound_ms']:.6f} ms, "
+            f"{100 * step_bound['bound_ms'] / ms_k:.4f}% of it")
+        entries.append({
+            "name": f"fp_substeps_kernel.{name}", "route": "cuda",
+            "source": "compton2d_tpu_torch/csrc/fp_substeps.cu",
+            "replaces": None, "library_ms": None, "launches": launches,
+            "fp_steps": steps, "max_abs_err": c.f_nt, "tea_gap": c.te,
+            "ms": kernel_ms, "bound_ms": bound["bound_ms"],
+            "bound_by": bound["bound_by"], "zone_substeps": zone_substeps,
+            "fp_step_ms": ms_k, "plain_ms": ms_p,
+            "fp_step_bound_ms": step_bound["bound_ms"]})
+    return entries
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2636,8 +2754,12 @@ def main() -> int:
         f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)} "
         f"count {torch.cuda.device_count()}")
     build_s = flight.build()
-    log(f"built {flight.library_path().name} in {build_s:.2f} s")
+    log(f"built {kernel_build.library_path(flight._SOURCE).name} in "
+        f"{build_s:.2f} s")
     log(flight.ptxas_report())
+    build_s = update.build()
+    log(f"built {kernel_build.library_path(update._SOURCE).name} in "
+        f"{build_s:.2f} s")
 
     device = torch.device("cuda", 0)
     torch.cuda.set_device(device)
@@ -2668,6 +2790,7 @@ def main() -> int:
     launches_gate, gates = phase_gate(device, card)
     launches_dryrun = phase_entry_points(device, card, gates)
     launches_loop_phase = phase_loop(device, card, select)
+    k_fp = phase_fp(device, card)
 
     replaces = "compton2d_tpu/transport/flight_pallas2.py:347"
     log(json.dumps({"kernels": [
@@ -2707,6 +2830,7 @@ def main() -> int:
          "source": "compton2d_tpu_torch/csrc/flight.cu",
          "replaces": replaces, "launches": launches_ec,
          "library_ms": None, **k_ec},
+        *k_fp,
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

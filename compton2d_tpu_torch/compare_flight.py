@@ -35,6 +35,7 @@ from pathlib import Path
 
 import torch
 
+from compton2d_tpu_torch import kernel_build
 from compton2d_tpu_torch.bench import card_line
 from compton2d_tpu_torch.transport import flight
 
@@ -122,7 +123,7 @@ def main(argv=None) -> int:
         (str(r), load_version(r, f"v{i}")) for i, r in enumerate(roots)]
     for label, mod in versions:
         src = Path(mod._SOURCE)
-        flight.compile_source(src)
+        kernel_build.compile_source(src)
         print(f"{label}: {src}\n{flight.ptxas_report(src)}", flush=True)
     device = torch.device("cuda", 0)
     captured = {}

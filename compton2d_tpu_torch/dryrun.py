@@ -33,6 +33,7 @@ from compton2d_tpu_torch import driver
 from compton2d_tpu_torch.config import ZoneInit
 from compton2d_tpu_torch.driver import Simulation
 from compton2d_tpu_torch.examples import corona_config
+from compton2d_tpu_torch.fp import update
 from compton2d_tpu_torch.parallel import distributed
 from compton2d_tpu_torch.transport import flight
 
@@ -182,8 +183,9 @@ def dryrun_multichip(world: int, device="cuda", backend: str = "gloo",
     if local.type == "cuda":
         if local.index is None:
             local = torch.device("cuda", 0)
-        # the ranks only load the kernel library: build it once, here
+        # the ranks only load the kernel libraries: build them once, here
         flight.build()
+        update.build()
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(dir=rendezvous_dir) as tmp:
         ranks = distributed.run_ranks(

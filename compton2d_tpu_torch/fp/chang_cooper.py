@@ -33,14 +33,22 @@ def _w_over_one_minus_exp_neg(w):
     return w + _w_over_expm1(w)
 
 
+def grid_spacing(gnt) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The (num_nt,) rows d_gm, d_gp (the spacings below and above each
+    bin, the end bins' copied from their neighbours) and delta_g of the
+    Chang-Cooper discretization (update2d.f:1363-1367)."""
+    d_gm = torch.cat([gnt[1:2] - gnt[0:1], gnt[1:] - gnt[:-1]])
+    d_gp = torch.cat([gnt[1:] - gnt[:-1], gnt[-1:] - gnt[-2:-1]])
+    delta_g = torch.sqrt(gnt / torch.cat([gnt[0:1], gnt[:-1]])) * d_gm
+    return d_gm, d_gp, delta_g
+
+
 def chang_cooper_coeffs(gnt, dgdt, disp, d_t, t_esc
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Tridiagonal coefficients (a, b, c), shapes (..., num_nt)
     (update2d.f:1363-1390)."""
     num_nt = gnt.shape[0]
-    d_gm = torch.cat([gnt[1:2] - gnt[0:1], gnt[1:] - gnt[:-1]])
-    d_gp = torch.cat([gnt[1:] - gnt[:-1], gnt[-1:] - gnt[-2:-1]])
-    delta_g = torch.sqrt(gnt / torch.cat([gnt[0:1], gnt[:-1]])) * d_gm
+    d_gm, d_gp, delta_g = grid_spacing(gnt)
 
     dgdt_p1 = torch.roll(dgdt, -1, dims=-1)
     disp_p1 = torch.roll(disp, -1, dims=-1)

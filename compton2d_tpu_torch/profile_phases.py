@@ -8,7 +8,7 @@ and host and device ms a step (``step`` and its children ``step.census``,
 ``track.tables``, ``track.flight``, ``track.leak`` and ``track.scatter``,
 ``step.fp`` and ``step.outputs``), each host-read site's reads and host
 wait a step, the counts (FP substeps, tracking rounds, loop iterations)
-and the flight kernel's launches. The card is synchronised only at the
+and the kernels' launches. The card is synchronised only at the
 ends of each run. Prints one JSON object::
 
   python -m compton2d_tpu_torch.profile_phases --config mrk421
@@ -49,6 +49,7 @@ from compton2d_tpu_torch import decks, run_mrk421
 from compton2d_tpu_torch import telemetry as tm
 from compton2d_tpu_torch.bench import card_line
 from compton2d_tpu_torch.examples import small_corona
+from compton2d_tpu_torch.fp import update
 from compton2d_tpu_torch.transport import flight
 
 
@@ -113,6 +114,7 @@ def main(argv=None):
         raise SystemExit("profile_phases: needs a CUDA card")
     device = torch.device("cuda", 0)
     flight.build()
+    update.build()
 
     sim = make_sim(args.config, device)
     torch.cuda.reset_peak_memory_stats(device)
@@ -155,7 +157,7 @@ def main(argv=None):
                                "wait_ms": v["wait_ms"] / n_t}
                            for k, v in snap["reads"].items()},
         "counts_per_step": {k: v / n_t for k, v in snap["counts"].items()},
-        "flight_launches": snap["launches"],
+        "launches": snap["launches"],
     }))
 
 

@@ -12,6 +12,10 @@ Two models, one byte count:
   writes the photon SoA once more), which times the rounds of a step
   gives the tracking phase's least time (:func:`tracking_bound_ms`;
   ``chip_smoke.py`` phase 3 reads it from the main path's run).
+
+And the FP solve's (``chip_smoke.py`` phase 13): :func:`fp_bound`, the
+work model of the benchmark's ``fp_roofline_pct`` for one step, and
+:func:`fp_kernel_bound`, the substep kernel's own work.
 """
 from __future__ import annotations
 
@@ -33,6 +37,10 @@ OPS_GG = 15
 # mu, cphi, sphi, dcen, jz, kr, alive) and written by it (those but w0
 # and alive, the flag, mode, jn, kn and sct_cnt, and the per-lane sums)
 SOA_IN, SOA_OUT = 12, 20
+# the FP solve's operations a bin of a zone a substep: the Chang-Cooper
+# coefficients with the drift and dispersion terms (52) and one
+# tridiagonal solve (8, Thomas's count, the least a solve needs)
+FP_OPS_BIN_SUBSTEP = 60
 
 
 def table_elems(tables, pairs: bool) -> int:
@@ -50,6 +58,13 @@ def kernel_bytes(n: int, nzr: int, n_table: int, log_entries: int) -> int:
     bytes_in = 4 * (SOA_IN * n + n_tiles + n_table)
     bytes_out = 4 * (SOA_OUT * n + 2 * nzr) + 8 * log_entries
     return bytes_in + bytes_out
+
+
+def _bound(nbytes: int, ops: int) -> dict:
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S, ops / PEAK_F32_S
+    return {"bound_ms": 1e3 * max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "ops": ops}
 
 
 def flight_bound(photons, tables, res, nz: int, nr: int,
@@ -72,11 +87,7 @@ def flight_bound(photons, tables, res, nz: int, nr: int,
     flights = int(live.sum()) + scatters
     ops = ((OPS_FLY + (OPS_GG if pairs else 0)) * flights
            + (OPS_SCT_A + OPS_SCT_B) * scatters)
-    t_bytes = nbytes / PEAK_BYTES_S
-    t_ops = ops / PEAK_F32_S
-    return {"bound_ms": 1e3 * max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "bytes": nbytes, "ops": ops}
+    return _bound(nbytes, ops)
 
 
 def round_bytes(sim) -> int:
@@ -104,3 +115,27 @@ def tracking_bound_ms(sim, rounds_per_step: float) -> float:
     """The tracking phase's least ms per step: its rounds' bytes at the
     HBM rate."""
     return 1e3 * rounds_per_step * round_bytes(sim) / PEAK_BYTES_S
+
+
+def fp_bound(zones: int, num_nt: int, nphfield: int, substeps: int) -> dict:
+    """The least time of one FP step (``benchmark/metrics/
+    fp_roofline_pct.py``'s model): each zone's distribution read and
+    written, its radiation field and 16 scalars read, the inverse-Compton
+    contraction (2 nphfield num_nt a zone) and FP_OPS_BIN_SUBSTEP a bin of
+    every zone for each of the step's ``substeps`` (the largest zone's
+    count: it charges a zone that is done for the substeps it no longer
+    takes)."""
+    return _bound(zones * (2 * num_nt * 4 + nphfield * 4 + 16 * 4),
+                  zones * 2 * nphfield * num_nt
+                  + substeps * zones * num_nt * FP_OPS_BIN_SUBSTEP)
+
+
+def fp_kernel_bound(zones: int, num_nt: int, zone_substeps: int) -> dict:
+    """The least time of one launch of the FP substep kernel
+    (``csrc/fp_substeps.cu``): each zone's distribution and
+    inverse-Compton drift read and its distribution written, 20 scalars
+    read and 5 written a zone, and FP_OPS_BIN_SUBSTEP a bin of each
+    substep a zone takes (``zone_substeps``, the per-zone counts summed:
+    a zone that is done stops)."""
+    return _bound(zones * (3 * num_nt + 25) * 4,
+                  zone_substeps * num_nt * FP_OPS_BIN_SUBSTEP)

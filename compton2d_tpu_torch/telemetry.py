@@ -20,6 +20,9 @@ and :func:`snapshot`, and the three recorders the program calls:
 - ``count(name, n)``: a host-side count (FP substeps, tracking rounds,
   loop iterations).
 
+A kernel module hands its launch counts over once, when it is imported,
+with :func:`register_launches`; the snapshot reads them.
+
 ``enable`` takes one anchor pair, ``(time.time_ns(),
 time.perf_counter_ns())``: the snapshot puts each span's host intervals
 on the Unix clock from it, the clock of a ``torch.profiler`` chrome trace
@@ -34,7 +37,8 @@ Names used by the step (``driver``, ``transport``, ``fp``, ``io``,
   (with ``track.tables``, ``track.flight``, ``track.leak``,
   ``track.scatter``), ``step.fp`` and ``step.outputs``; ``run.finalize``,
   ``outputs.read_events``, ``outputs.postprocess``, ``mesh.exchange``;
-- read sites: ``fp.done`` (the substep loop's condition), ``fp.upload``,
+- read sites: ``fp.done`` (on the card the step's substep counts, once
+  a step; on the CPU the plain substep loop's condition), ``fp.upload``,
   ``census.trigger``, ``census.upload``, ``segment.lengths``,
   ``source.upload``, ``track.more`` (the round loop's condition),
   ``track.it_used``, ``track.leak``, ``track.scatter``, ``track.seed``,
@@ -42,7 +46,13 @@ Names used by the step (``driver``, ``transport``, ``fp``, ``io``,
   ``leak.lanes``, ``loop.more``, ``loop.leak``, ``loop.scatter``,
   ``step.clock``, ``step.dt``, ``step.events``, ``step.outputs``,
   ``outputs.events``, ``run.finalize``, ``mesh.buffer``;
-- counts: ``fp.substeps``, ``track.rounds``, ``loop.iterations``.
+- counts: ``fp.substeps`` (the step's largest per-zone count of FP
+  substeps), ``fp.zone_substeps`` (the per-zone counts summed over the
+  zones), ``track.rounds``, ``loop.iterations``;
+- launches (the snapshot's, counted whether on or off, by the kernel
+  modules): ``transport.flight.launch_counts()`` (``inline``, ``strat``,
+  ``pair``, ``window``, ``global_tables``) and
+  ``fp.update.launch_counts()`` (``fp_substeps``).
 """
 from __future__ import annotations
 
@@ -55,6 +65,7 @@ _anchor = (0, 0)            # (time.time_ns(), time.perf_counter_ns())
 _spans: dict = {}           # name -> [(t0_ns, t1_ns, event0, event1)]
 _reads: dict = {}           # site -> [count, ns blocked]
 _counts: dict = {}          # name -> total
+_launches: dict = {}        # kernel module -> its launch_counts
 
 
 class _Off:
@@ -137,6 +148,12 @@ def count(name: str, n: int) -> None:
         _counts[name] = _counts.get(name, 0) + int(n)
 
 
+def register_launches(module: str, launch_counts) -> None:
+    """Have the snapshot's ``launches`` hold what ``launch_counts()``
+    (a kernel module's launches by name, a dict) reads then."""
+    _launches[module] = launch_counts
+
+
 def enable() -> None:
     """Start recording (the records kept so far stay) and take the clock
     anchor."""
@@ -165,11 +182,10 @@ def snapshot() -> dict:
       without CUDA events) and ``intervals``, its host intervals as
       [start, end] nanoseconds on the Unix clock;
     - ``reads``: each site's ``count`` and ``wait_ms``;
-    - ``counts``; ``launches``: ``flight.launch_counts()`` as it reads;
+    - ``counts``; ``launches``: the registered kernel modules' launch
+      counts as they read;
     - ``anchor``: the (Unix ns, perf_counter ns) pair of ``enable``.
     """
-    from compton2d_tpu_torch.transport import flight
-
     if torch.cuda.is_initialized():
         torch.cuda.synchronize()
     unix0, perf0 = _anchor
@@ -190,6 +206,7 @@ def snapshot() -> dict:
         "reads": {k: {"count": c, "wait_ms": ns * 1e-6}
                   for k, (c, ns) in _reads.items()},
         "counts": dict(_counts),
-        "launches": flight.launch_counts(),
+        "launches": {k: n for counts in _launches.values()
+                     for k, n in counts().items()},
         "anchor": [unix0, perf0],
     }

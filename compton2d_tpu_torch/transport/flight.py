@@ -34,12 +34,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
 import re
-import shutil
-import subprocess
-import tempfile
 import time
 from pathlib import Path
 from typing import NamedTuple, Optional, Tuple
@@ -47,6 +42,7 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from compton2d_tpu_torch import kernel_build
 from compton2d_tpu_torch import telemetry as tm
 
 TILE = 1024        # RNG tile: lane = slot % TILE, seed = seeds[slot // TILE]
@@ -104,12 +100,10 @@ def reset_launch_counts() -> None:
     LAUNCHES = STRAT_LAUNCHES = PAIR_LAUNCHES = WINDOW_LAUNCHES = 0
     GLOBAL_LAUNCHES = 0
 
+
+tm.register_launches(__name__, launch_counts)
+
 _SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "flight.cu"
-_BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
 _lib = None
 
 
@@ -706,54 +700,10 @@ def flight_step_reference(
 # ---------------------------------------------------------------------------
 # CUDA kernel: build, bind, launch
 # ---------------------------------------------------------------------------
-def _nvcc() -> str:
-    for cand in (
-        os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
-                     "bin", "nvcc"),
-        shutil.which("nvcc"),
-    ):
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
-
-
-def library_path(source: Path = _SOURCE) -> Path:
-    """Build output for ``source`` and the flags (hash-keyed)."""
-    h = hashlib.sha256(Path(source).read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
-    return _BUILD_DIR / f"flight_{h.hexdigest()[:16]}.so"
-
-
-def compile_source(source: Path = _SOURCE) -> Path:
-    """Compile ``source`` with nvcc for sm_90a into its hash-keyed library
-    if that is missing, keeping ptxas's report beside it
-    (:func:`ptxas_report`). Returns the library's path."""
-    path = library_path(source)
-    if not path.exists():
-        _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
-        os.close(fd)
-        try:
-            proc = subprocess.run(
-                [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(source)],
-                capture_output=True, text=True,
-            )
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed ({proc.returncode}):\n{proc.stderr}"
-                )
-            path.with_suffix(".ptxas.txt").write_text(proc.stderr)
-            os.replace(tmp, path)
-        finally:
-            if os.path.exists(tmp):
-                os.remove(tmp)
-    return path
-
-
 def ptxas_report(source: Path = _SOURCE) -> str:
     """One line for each flight-kernel instance of ``source``'s build:
     ptxas's registers, stack and spills."""
-    txt = library_path(source).with_suffix(".ptxas.txt").read_text()
+    txt = kernel_build.ptxas_text(source)
     out = []
     for ln in txt.splitlines():
         entry = re.search(r"Compiling entry function '(\S+)'", ln)
@@ -774,7 +724,7 @@ def build(source: Path = _SOURCE) -> float:
     :func:`flight_step` launches. Returns the seconds spent."""
     global _lib
     t0 = time.perf_counter()
-    path = compile_source(source)
+    path = kernel_build.compile_source(source)
     if _lib is None or Path(_lib._name) != path:
         lib = ctypes.CDLL(str(path))
         for fn in ("flight_pointers_bytes", "flight_scalars_bytes"):
@@ -794,17 +744,6 @@ def build(source: Path = _SOURCE) -> float:
         _lib = lib
         plan_block.cache_clear()
     return time.perf_counter() - t0
-
-
-def _check(t: torch.Tensor, name: str, dtype, shape, device):
-    if t.device != device:
-        raise ValueError(f"{name}: on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise ValueError(f"{name}: dtype {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {shape}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name}: not contiguous")
 
 
 def _recombine_windows(part, base, win_z: int, nzr: int) -> torch.Tensor:
@@ -935,15 +874,15 @@ def _prepare(e, w, w0, r, z, mu, cphi, sphi, dcen, jz, kr, alive,
     for name, t in (("e", e), ("w", w), ("w0", w0), ("r", r), ("z", z),
                     ("mu", mu), ("cphi", cphi), ("sphi", sphi),
                     ("dcen", dcen)):
-        _check(t, name, f32, (n,), dev)
+        kernel_build.check(t, name, f32, (n,), dev)
     for name, t in (("jz", jz), ("kr", kr)):
-        _check(t, name, i32, (n,), dev)
-    _check(alive, "alive", torch.bool, (n,), dev)
-    _check(seeds, "seeds", i32, (n // TILE,), dev)
+        kernel_build.check(t, name, i32, (n,), dev)
+    kernel_build.check(alive, "alive", torch.bool, (n,), dev)
+    kernel_build.check(seeds, "seeds", i32, (n // TILE,), dev)
     lay = packed_layout(nz, nr, n_vol, n_gg, num_nt)
     off, nbytes = lay[SECTIONS[-1]]
-    _check(tables.packed, "packed", torch.uint8, (_pad16(off + nbytes),),
-           dev)
+    kernel_build.check(tables.packed, "packed", torch.uint8,
+                       (_pad16(off + nbytes),), dev)
     if _lib is None:
         build()
     plan = plan_block(nz, nr, n_vol, n_gg, num_nt, bool(inline_scatter),

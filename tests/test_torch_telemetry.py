@@ -11,6 +11,7 @@ import torch
 
 from compton2d_tpu_torch import telemetry as tm
 from compton2d_tpu_torch.examples import small_corona
+from compton2d_tpu_torch.fp import update
 from compton2d_tpu_torch.parallel.distributed import run_ranks
 from compton2d_tpu_torch.transport import flight
 
@@ -191,9 +192,24 @@ def test_read_counts_each_site_and_its_wait():
     assert snap["reads"]["track.it_used"]["wait_ms"] >= 4.0
     assert snap["reads"]["fp.done"]["count"] == 1
     assert snap["counts"] == {"track.rounds": 3}
-    assert snap["launches"] == flight.launch_counts()
+    assert snap["launches"] == dict(flight.launch_counts(),
+                                    **update.launch_counts())
     tm.reset()
     assert tm.snapshot()["reads"] == {}
+
+
+def test_snapshot_reads_each_registered_kernel_modules_launches(
+        monkeypatch):
+    """A kernel module hands its launch counts to the telemetry once; the
+    snapshot reads them as they stand, and a reset of the module's count
+    shows there."""
+    monkeypatch.setattr(tm, "_launches", dict(tm._launches))
+    tm.register_launches("tests.kernel", lambda: {"tests_kernel": 7})
+    update.reset_launch_counts()
+    launches = tm.snapshot()["launches"]
+    assert launches["tests_kernel"] == 7
+    assert launches["fp_substeps"] == 0
+    assert set(flight.launch_counts()) < set(launches)
 
 
 def test_span_lies_on_the_profiler_trace_clock(tmp_path):

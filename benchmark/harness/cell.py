@@ -212,17 +212,27 @@ class CellRun:
         self.outputs.clear()
         return rec
 
+    def _align(self) -> None:
+        """Wait for every rank: an all_reduce of one element on the card,
+        then the card synchronised."""
+        import torch.distributed as dist
+
+        dist.all_reduce(torch.zeros(1, device=self.device))
+        _sync(self.device)
+
     def traced(self, spans) -> dict:
         """The last ``trace_steps`` steps of the window's last repetition
         (with a run's outputs of those steps), run again after the window
         from their pre-step state, timed as the window runs them and then
-        under the profiler."""
+        under the profiler; on several ranks each run starts with the
+        ranks lined up."""
         from harness import trace
 
         k = min(self.w["trace_steps"], len(self.last.steps))
         pre, g, _ = self.last.steps[-k]
         _, tr = trace.profile(lambda: self.unit(
-            start=(pre, g), n_steps=k, out_dir=self._other()), spans)
+            start=(pre, g), n_steps=k, out_dir=self._other()), spans,
+            align=None if self.mesh is None else self._align)
         self.outputs.clear()
         return tr
 

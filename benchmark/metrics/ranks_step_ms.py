@@ -1,7 +1,8 @@
 """ranks_step_ms: the window's milliseconds over its steps on several
-ranks, the segment restores included (the slowest rank's window): the
-cell on four cards spreads far more between runs than one card's, so its
-step time is a metric of its own, with a bound of its own."""
+ranks, the segment restores included (the slowest rank's window): a
+step on several cards waits in each exchange for the slowest rank and
+spreads apart from one card's, so its step time is a metric of its own,
+with a bound of its own."""
 
 
 def read(m):

@@ -122,10 +122,17 @@ def run_rank(args, device, mesh=None, t_wall: float = T_WALL,
     return rec
 
 
+# each rank's figures of the traced stretch, averaged over the ranks
+RANK_TRACE = ("busy_s", "window_s", "profiled_s", "comm_kernel_s",
+              "align_s")
+
+
 def merge(recs: list) -> dict:
     """One record of the ranks': the slowest rank's window, set-up, spans
     and exchange; the fullest card's memory; the mean of the ranks'
-    traced busy time; each compared number's worst."""
+    traced figures; each rank's core, set-up, window, host thread, peak
+    memory and traced figures (``ranks``); each compared number's
+    worst."""
     r0 = dict(recs[0])
     worst = lambda k: max(r[k] for r in recs)
     r0.update(window_s=worst("window_s"), setup_s=worst("setup_s"),
@@ -134,14 +141,15 @@ def merge(recs: list) -> dict:
     if r0.get("spans_ms"):
         r0["spans_ms"] = {k: max(r["spans_ms"][k] for r in recs)
                           for k in r0["spans_ms"]}
+    r0["ranks"] = [{"core": r["core"], "setup_s": r["setup_s"],
+                    "run_window_s": r["window_s"], "host": r["host"],
+                    "memory_peak_bytes": r["memory_peak_bytes"]}
+                   for r in recs]
     if r0.get("trace"):
-        n = len(recs)
-        r0["trace"] = dict(r0["trace"],
-                           busy_s=sum(r["trace"]["busy_s"] for r in recs) / n,
-                           window_s=sum(r["trace"]["window_s"]
-                                        for r in recs) / n,
-                           profiled_s=sum(r["trace"]["profiled_s"]
-                                          for r in recs) / n)
+        mean = lambda k: sum(r["trace"][k] for r in recs) / len(recs)
+        r0["trace"] = dict(r0["trace"], **{k: mean(k) for k in RANK_TRACE})
+        for each, r in zip(r0["ranks"], recs):
+            each.update({k: r["trace"][k] for k in RANK_TRACE})
     for key in ("checks", "control"):
         if key in r0:
             r0[key] = {k: max(r[key][k] for r in recs) for k in r0[key]}
@@ -218,6 +226,8 @@ def result(args, rec: dict, root: Path = specs.ROOT):
     info["fp_substeps_per_step"] = rec["fp_substeps"] / rec["steps"]
     out_lines = ["# counts " + json.dumps(info)]
     out_lines.append("# detail " + json.dumps(rec.get("detail")))
+    if rec.get("ranks"):
+        out_lines.append("# ranks " + json.dumps(rec["ranks"]))
     if "control" in rec:
         out_lines.append("# control " + json.dumps(rec["control"]))
         out_lines.append("# control detail "

@@ -49,19 +49,6 @@ def tiny_files(root: Path) -> None:
     for name, w in cells.items():
         (root / "workloads" / f"{name}.json").write_text(json.dumps(w))
     bench = json.loads((root.parent / "BENCHMARK.json").read_text())
-    # the metrics of a cell on several ranks, added as a cell on cards
-    # would add them
-    ranks_metrics = {
-        "end_to_end": {"name": "ranks_step_ms", "unit": "ms",
-                       "better": "lower", "bound": 0.25,
-                       "source": "host_clock"},
-        "per_layer": {"name": "exchange_ms", "unit": "ms/step",
-                      "better": "lower", "source": "program_counter",
-                      "layer": "mesh exchange",
-                      "moves": "histories_per_s"}}
-    for key, spec in ranks_metrics.items():
-        if all(s["name"] != spec["name"] for s in bench[key]):
-            bench[key].append(dict(spec, workloads=[]))
     names = list(cells)
     bench["workloads"] = [
         {"name": n, "config": w["config"], "traffic": n.split(".", 1)[1],

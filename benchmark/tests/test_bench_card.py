@@ -2,7 +2,8 @@
 place reads over the cells' limits, and the program itself under them,
 on three seeds. The blob runs at the CPU tests' tiny size; the corona at
 its own size, one cycle of its window (at 32x32 zones and 65536 slots
-TF32 still moved no photon). Needs a CUDA card; skips without one.
+TF32 still moved no photon), on one card and on four. Needs a CUDA card
+(four for the cell on four); skips without.
 
     python3 -m pytest benchmark/tests/test_bench_card.py
 """
@@ -14,9 +15,9 @@ import torch
 from conftest import BENCH
 
 
-def _needs_card():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card")
+def _needs_card(n=1):
+    if not torch.cuda.is_available() or torch.cuda.device_count() < n:
+        pytest.skip(f"needs {n} CUDA card(s)")
 
 
 def _control_fails(root, cell, limits):
@@ -44,8 +45,10 @@ def test_control_fails_on_the_blob(tiny_root):
 
 
 @pytest.mark.cuda
-def test_control_fails_on_the_corona():
-    _needs_card()
-    limits = json.loads((BENCH / "workloads" / "corona99.evolve.json")
+@pytest.mark.parametrize("cell, cards", [("corona99.evolve", 1),
+                                         ("corona99.ranks4", 4)])
+def test_control_fails_on_the_corona(cell, cards):
+    _needs_card(cards)
+    limits = json.loads((BENCH / "workloads" / f"{cell}.json")
                         .read_text())["limits"]
-    _control_fails(BENCH, "corona99.evolve", limits)
+    _control_fails(BENCH, cell, limits)

@@ -77,3 +77,23 @@ def test_reference_imports_nothing_of_the_port_or_jax():
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
+
+
+def _cells(bench):
+    return {w["name"]: specs.load_workload(w["name"])
+            for w in bench["workloads"]}
+
+
+@pytest.mark.parametrize("metric", ["ranks_step_ms", "exchange_ms"])
+def test_ranks_metrics_list_only_cells_on_several_ranks(metric):
+    bench = specs.load_benchmark()
+    cells = _cells(bench)
+    spec = next(s for s in bench["end_to_end"] + bench["per_layer"]
+                if s["name"] == metric)
+    assert spec["workloads"]
+    assert all(cells[n]["ranks"] > 1 for n in spec["workloads"])
+
+
+def test_at_most_one_cell_asks_for_four_chips():
+    bench = specs.load_benchmark()
+    assert sum(w["chips"] == 4 for w in bench["workloads"]) <= 1

@@ -2,6 +2,7 @@
 from types import SimpleNamespace
 
 import pytest
+import torch
 
 from harness import peaks, specs
 from harness.spans import Spans
@@ -125,19 +126,80 @@ def test_idle_share_divides_by_the_unprofiled_stretch():
            "ts": 350, "dur": 600}]
     t = trace.summarize(ev, window_s=1e-3)
     assert t["busy_s"] == pytest.approx(5e-4)
+    assert t["comm_kernel_s"] == 0
     assert t["idle_gaps"] == [["fp", pytest.approx(5e-4)]]
     m = SimpleNamespace(trace=dict(t, profiled_s=4e-3))
     assert specs.load_metric("device_idle_pct").read(m) == \
         pytest.approx(50.0)
 
 
-def test_profile_times_the_stretch_before_profiling_it():
+def test_collective_kernels_are_left_out_of_busy_time():
+    """A collective's kernel overlapping a compute kernel and running on
+    alone into an idle stretch: busy time is the compute kernels' union
+    alone, the collective's length is ``comm_kernel_s``, and it stays
+    among the device operations."""
+    from harness import trace
+
+    nccl = "ncclDevKernel_AllGather_RING_LL(ncclDevComm*, unsigned long)"
+    base = [{"ph": "X", "cat": "kernel", "name": "k", "ts": 0, "dur": 300},
+            {"ph": "X", "cat": "gpu_memcpy", "name": "c", "ts": 900,
+             "dur": 100}]
+    ev = base + [{"ph": "X", "cat": "kernel", "name": nccl, "ts": 100,
+                  "dur": 700}]
+    t = trace.summarize(ev, window_s=1e-3)
+    assert t["busy_s"] == pytest.approx(4e-4)
+    assert t["comm_kernel_s"] == pytest.approx(7e-4)
+    assert [nccl, pytest.approx(7e-4)] in t["device_ops"]
+    assert t["idle_gaps"] == [["unwrapped", pytest.approx(6e-4)]]
+    # the same trace without the collective reads the same busy time
+    t0 = trace.summarize(base, window_s=1e-3)
+    assert t0["busy_s"] == t["busy_s"] and t0["comm_kernel_s"] == 0
+    assert t0["idle_gaps"] == t["idle_gaps"]
+    assert t0["align_s"] == t["align_s"] == 0
+
+
+def test_the_ranks_lining_up_is_no_part_of_the_stretch():
+    """The device's work inside the ``harness.align`` annotation (the
+    lining-up's all_reduce, waiting for the last rank's profiler) is left
+    out of every figure but ``align_s``."""
+    from harness import trace
+
+    stretch = [{"ph": "X", "cat": "kernel", "name": "k", "ts": 2000,
+                "dur": 300},
+               {"ph": "X", "cat": "kernel", "name": "ncclDevKernel_AllGather",
+                "ts": 2400, "dur": 50}]
+    ev = stretch + [
+        {"ph": "X", "cat": "user_annotation", "name": trace.ALIGN, "ts": 0,
+         "dur": 1900},
+        {"ph": "X", "cat": "kernel", "name": "ncclDevKernel_AllReduce",
+         "ts": 10, "dur": 1800},
+        {"ph": "X", "cat": "kernel", "name": "fill", "ts": 5, "dur": 2}]
+    t, t0 = (trace.summarize(e, window_s=1e-3) for e in (ev, stretch))
+    assert t["align_s"] == pytest.approx(1.802e-3)
+    assert {k: v for k, v in t.items() if k != "align_s"} == \
+        {k: v for k, v in t0.items() if k != "align_s"}
+    assert t0["comm_kernel_s"] == pytest.approx(5e-5)
+
+
+@pytest.mark.parametrize("aligned", [False, True])
+def test_profile_times_the_stretch_before_profiling_it(aligned):
+    """The stretch runs unprofiled, then under the profiler; ``align``,
+    where given, runs before each, the second time under the profiler."""
     from harness import trace
 
     calls = []
+
+    def mark(what):
+        return lambda: calls.append(
+            (what, torch.autograd._profiler_enabled())) or 7
+
     sp = Spans({}, "cpu")
-    out, t = trace.profile(lambda: calls.append(len(calls)) or 7, sp)
-    assert out == 7 and calls == [0, 1]
+    out, t = trace.profile(mark("run"), sp,
+                           mark("align") if aligned else None)
+    assert out == 7
+    runs = [("run", False), ("run", True)]
+    assert calls == ([("align", False), runs[0], ("align", True), runs[1]]
+                     if aligned else runs)
     assert 0 < t["window_s"] and 0 < t["profiled_s"]
     assert not sp.profiling
 

@@ -3,6 +3,7 @@ line's keys, the segment replay's repeatability, a cell and a metric
 added as new files, and the check failing under each fault the cells can
 have."""
 import json
+import time
 
 import pytest
 import torch
@@ -190,3 +191,43 @@ def test_ranks_correct_and_exchange_left_out_not(tiny_root):
     assert res["correct"] is False, res["checks"]
     assert set(res["metrics"]) == {"ranks_step_ms", "histories_per_s",
                                    "setup_s"}
+
+
+LATE_S = 0.5
+
+
+def late_rank_one():
+    """Rank 1 enters its traced stretch ``LATE_S`` late."""
+    from harness import cell
+
+    traced = cell.CellRun.traced
+
+    def late(self, spans):
+        if self.mesh.rank == 1:
+            time.sleep(LATE_S)
+        return traced(self, spans)
+    cell.CellRun.traced = late
+
+
+def test_ranks_lined_up_before_the_traced_stretch(tiny_root):
+    """Two gloo ranks, rank 1 late to its traced stretch: rank 0's
+    unprofiled stretch does not hold the wait, and the ``# ranks`` line
+    gives both ranks' figures."""
+    import run as entry
+
+    args = entry.parser().parse_args([
+        "--workload", "tiny_corona.ranks2", "--seed", str(2 ** 31 + 9),
+        "--seconds", "0", "--trace", "1"])
+    rec = entry.collect(args, "cpu", tiny_root, late_rank_one)
+    res, out_lines, _ = entry.result(args, rec, tiny_root)
+    assert res["correct"] is True, res["checks"]
+    lines = [x for x in out_lines if x.startswith("# ranks ")]
+    assert len(lines) == 1
+    ranks = json.loads(lines[0][len("# ranks "):])
+    assert len(ranks) == 2
+    for r in ranks:
+        assert {"busy_s", "window_s", "profiled_s", "comm_kernel_s",
+                "align_s", "core", "run_window_s", "setup_s", "host",
+                "memory_peak_bytes"} <= set(r)
+    w0, w1 = ranks[0]["window_s"], ranks[1]["window_s"]
+    assert w0 < w1 + LATE_S / 2, ranks

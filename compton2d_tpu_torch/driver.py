@@ -655,36 +655,45 @@ def pair_fields(photons: PhotonArray, zones: ZoneState, tables: Tables,
     nzr = nz * nr
     ngg = tables.e_gg.shape[0]
     egg32 = tables.e_gg.to(f32)
-    gbin, in_gg = loggrid_bin(photons.e, tables.e_gg_log0,
-                              tables.e_gg_dlog, ngg)
-    cnts = torch.where(photons.alive & in_gg,
-                       photons.w / torch.clamp_min(photons.e, 1e-30), 0.0)
-    zid = (torch.clamp(photons.jz, 0, nz - 1) * nr
-           + torch.clamp(photons.kr, 0, nr - 1))
-    nph_scaled = hist2d(cnts, zid, nzr, gbin, ngg)
-    if mesh is not None:
-        nph_scaled = pmesh.all_gather_sum(mesh, nph_scaled)
-    # bin widths; the last bin's "width" is 1 (the reference's choice)
-    de_gg = torch.cat([torch.diff(egg32), egg32.new_ones(1)])
-    nph_phys = (nph_scaled * float(np.float32(scales.nfield_to_dgic))
-                / grid.vol.reshape(-1, 1).to(f32) / de_gg[None, :])
-    per_zone = (nph_phys, zones.tea.reshape(-1).to(f32),
-                zones.f_nt.reshape(nzr, -1).to(f32),
-                zones.n_pos.reshape(nzr, -1).to(f32),
-                zones.n_e.reshape(-1).to(f32))
-    if zone_shard:
-        per_zone = [pmesh.zone_slice_flat(mesh, x) for x in per_zone]
+    with tm.span("pairs.field"):
+        gbin, in_gg = loggrid_bin(photons.e, tables.e_gg_log0,
+                                  tables.e_gg_dlog, ngg)
+        on_grid = photons.alive & in_gg
+        if tm.enabled():
+            tm.count("pairs.gg_photons", torch.sum(on_grid))
+        cnts = torch.where(on_grid,
+                           photons.w / torch.clamp_min(photons.e, 1e-30), 0.0)
+        zid = (torch.clamp(photons.jz, 0, nz - 1) * nr
+               + torch.clamp(photons.kr, 0, nr - 1))
+        nph_scaled = hist2d(cnts, zid, nzr, gbin, ngg)
+        if mesh is not None:
+            nph_scaled = pmesh.all_gather_sum(mesh, nph_scaled)
+        # bin widths; the last bin's "width" is 1 (the reference's choice)
+        de_gg = torch.cat([torch.diff(egg32), egg32.new_ones(1)])
+        nph_phys = (nph_scaled * float(np.float32(scales.nfield_to_dgic))
+                    / grid.vol.reshape(-1, 1).to(f32) / de_gg[None, :])
+        per_zone = (nph_phys, zones.tea.reshape(-1).to(f32),
+                    zones.f_nt.reshape(nzr, -1).to(f32),
+                    zones.n_pos.reshape(nzr, -1).to(f32),
+                    zones.n_e.reshape(-1).to(f32))
+        if zone_shard:
+            per_zone = [pmesh.zone_slice_flat(mesh, x) for x in per_zone]
     nph_z, tea_z, f_z, npos_z, ne_z = per_zone
-    nph_sm = pairs.nph_smooth(nph_z, egg32, tea_z)
-    k_gg = torch.matmul(nph_sm, pair_tables.kgg_mat.T)
-    dn_pp = pairs.dn_pp_from_field(nph_sm, pair_tables.pp_tensor)
-    dne_pa, dnp_pa = pairs.pa_rates(f_z, npos_z, ne_z, pair_tables.vsigma,
-                                    tables.gnt.to(f32))
-    rates = (nph_sm, k_gg, dn_pp, dne_pa, dnp_pa)
-    if zone_shard:
-        rates = pmesh.zone_gather(mesh, rates, nz, nr)[0]
-    else:
-        rates = tuple(x.reshape(nz, nr, -1) for x in rates)
+    with tm.span("pairs.fit"):
+        nph_sm = pairs.nph_smooth(nph_z, egg32, tea_z)
+        if tm.enabled():
+            tm.count("pairs.fit_zones", torch.sum(pairs.fitted(nph_z)))
+    with tm.span("pairs.rates"):
+        k_gg = torch.matmul(nph_sm, pair_tables.kgg_mat.T)
+        dn_pp = pairs.dn_pp_from_field(nph_sm, pair_tables.pp_tensor)
+        dne_pa, dnp_pa = pairs.pa_rates(f_z, npos_z, ne_z,
+                                        pair_tables.vsigma,
+                                        tables.gnt.to(f32))
+        rates = (nph_sm, k_gg, dn_pp, dne_pa, dnp_pa)
+        if zone_shard:
+            rates = pmesh.zone_gather(mesh, rates, nz, nr)[0]
+        else:
+            rates = tuple(x.reshape(nz, nr, -1) for x in rates)
     return PairFields(nph_phys.reshape(nz, nr, ngg), *rates)
 
 

@@ -202,6 +202,13 @@ def pa_rates(f_nt: torch.Tensor, n_pos: torch.Tensor, n_e: torch.Tensor,
 # ---------------------------------------------------------------------------
 N_K, N_L, N_M = 21, 13, 16   # the fit grid: amplitude, index, cutoff
 _CHUNK = 1 << 24             # chi^2 elements evaluated at once
+_N1, _N2 = 1, 9              # 0-based counterparts of the reference's 2, 10
+
+
+def fitted(nph: torch.Tensor) -> torch.Tensor:
+    """The (Z,) zones of the (Z, n_gg) field with signal enough to fit
+    (pp2d.f:384-386); :func:`nph_smooth` leaves the others raw."""
+    return (nph[:, _N1] > 1.0) & (nph[:, _N2] > 1.0)
 
 
 def nph_smooth(nph: torch.Tensor, e_gg: torch.Tensor,
@@ -219,10 +226,10 @@ def nph_smooth(nph: torch.Tensor, e_gg: torch.Tensor,
     Z, ngg = nph.shape
     dev = nph.device
     f32 = torch.float32
-    n1, n2 = 1, 9  # 0-based counterparts of the reference's 2 and 10
     a0 = torch.log(
-        torch.clamp_min(nph[:, n1], 1e-30) / torch.clamp_min(nph[:, n2], 1e-30)
-    ) / torch.log(e_gg[n2] / e_gg[n1])
+        torch.clamp_min(nph[:, _N1], 1e-30)
+        / torch.clamp_min(nph[:, _N2], 1e-30)
+    ) / torch.log(e_gg[_N2] / e_gg[_N1])
     a0 = torch.clamp(a0, 1e-2, 4.0)
     N0 = torch.clamp_min(nph[:, 2], 1e-30)
     E00 = torch.clamp_min(te, 1.0)
@@ -272,5 +279,4 @@ def nph_smooth(nph: torch.Tensor, e_gg: torch.Tensor,
 
     fit = model(Nb[:, None], ab[:, None], Eb[:, None])
     # zones without enough signal keep the raw field (pp2d.f:384-386)
-    ok = (nph[:, n1] > 1.0) & (nph[:, n2] > 1.0)
-    return torch.where(ok[:, None], fit, nph)
+    return torch.where(fitted(nph)[:, None], fit, nph)

@@ -1,7 +1,8 @@
 """Spans, host reads and counters inside the port's step, off by default.
 
-The whole interface is :func:`enable`, :func:`disable`, :func:`reset`
-and :func:`snapshot`, and the three recorders the program calls:
+The whole interface is :func:`enable`, :func:`disable`, :func:`reset`,
+:func:`enabled` and :func:`snapshot`, and the three recorders the program
+calls:
 
 - ``with span(name):`` a stretch of the step. Off, it returns one shared
   no-op object: no clock is read, no event recorded, nothing allocated.
@@ -17,8 +18,10 @@ and :func:`snapshot`, and the three recorders the program calls:
   memory onto the card, which waits for the stream. Off, it is
   ``kind(value)``; on, it also counts the read at ``site`` and adds the
   host's nanoseconds blocked in it.
-- ``count(name, n)``: a host-side count (FP substeps, tracking rounds,
-  loop iterations).
+- ``count(name, n)``: a count (FP substeps, tracking rounds, loop
+  iterations). A tensor ``n`` stays on the card, unread, until the
+  snapshot adds it up; a step computes such a count only while
+  :func:`enabled`, so off it costs the step nothing.
 
 A kernel module hands its launch counts over once, when it is imported,
 with :func:`register_launches`; the snapshot reads them.
@@ -33,7 +36,10 @@ Names used by the step (``driver``, ``transport``, ``fp``, ``io``,
 ``parallel``, ``run_mrk421``):
 
 - spans: ``step`` (all of ``Simulation.step``) with ``step.census``,
-  ``step.zone_pass``, ``step.source``, ``step.pairs``, ``step.track``
+  ``step.zone_pass``, ``step.source``, ``step.pairs`` (with
+  ``pairs.field``, the census histogram on the gamma-gamma grid and its
+  scaling, ``pairs.fit``, ``nph_smooth``, and ``pairs.rates``, the
+  opacity, pair production and annihilation rates), ``step.track``
   (with ``track.tables``, ``track.flight``, ``track.leak``,
   ``track.scatter``), ``step.fp`` and ``step.outputs``; ``run.finalize``,
   ``outputs.read_events``, ``outputs.postprocess``, ``mesh.exchange``;
@@ -48,7 +54,10 @@ Names used by the step (``driver``, ``transport``, ``fp``, ``io``,
   ``outputs.events``, ``run.finalize``, ``mesh.buffer``;
 - counts: ``fp.substeps`` (the step's largest per-zone count of FP
   substeps), ``fp.zone_substeps`` (the per-zone counts summed over the
-  zones), ``track.rounds``, ``loop.iterations``;
+  zones), ``track.rounds``, ``loop.iterations``, and on the card until
+  the snapshot ``pairs.fit_zones`` (the zones ``nph_smooth`` fits rather
+  than leaves raw, on a rank its zone slice) and ``pairs.gg_photons``
+  (the live census photons on the gamma-gamma grid, on a rank its own);
 - launches (the snapshot's, counted whether on or off, by the kernel
   modules): ``transport.flight.launch_counts()`` (``inline``, ``strat``,
   ``pair``, ``window``, ``global_tables``) and
@@ -65,6 +74,7 @@ _anchor = (0, 0)            # (time.time_ns(), time.perf_counter_ns())
 _spans: dict = {}           # name -> [(t0_ns, t1_ns, event0, event1)]
 _reads: dict = {}           # site -> [count, ns blocked]
 _counts: dict = {}          # name -> total
+_card_counts: dict = {}     # name -> [tensors], added up by the snapshot
 _launches: dict = {}        # kernel module -> its launch_counts
 
 
@@ -142,10 +152,21 @@ def read(site: str, value, kind):
     return out
 
 
-def count(name: str, n: int) -> None:
-    """Add ``n`` to the host-side count ``name`` when on."""
-    if _on:
+def count(name: str, n) -> None:
+    """Add ``n`` to the count ``name`` when on: an int at once, a tensor
+    (kept as it is, not read) at the snapshot."""
+    if not _on:
+        return
+    if isinstance(n, torch.Tensor):
+        _card_counts.setdefault(name, []).append(n)
+    else:
         _counts[name] = _counts.get(name, 0) + int(n)
+
+
+def enabled() -> bool:
+    """Whether the recorders record: a count that costs the step work
+    of its own is computed only then."""
+    return _on
 
 
 def register_launches(module: str, launch_counts) -> None:
@@ -173,6 +194,7 @@ def reset() -> None:
     _spans.clear()
     _reads.clear()
     _counts.clear()
+    _card_counts.clear()
 
 
 def snapshot() -> dict:
@@ -182,7 +204,8 @@ def snapshot() -> dict:
       without CUDA events) and ``intervals``, its host intervals as
       [start, end] nanoseconds on the Unix clock;
     - ``reads``: each site's ``count`` and ``wait_ms``;
-    - ``counts``; ``launches``: the registered kernel modules' launch
+    - ``counts``, those kept on the card read here;
+      ``launches``: the registered kernel modules' launch
       counts as they read;
     - ``anchor``: the (Unix ns, perf_counter ns) pair of ``enable``.
     """
@@ -201,11 +224,14 @@ def snapshot() -> dict:
             "intervals": [[unix0 + t0 - perf0, unix0 + t1 - perf0]
                           for t0, t1, _, _ in marks],
         }
+    counts = dict(_counts)
+    for name, ts in _card_counts.items():
+        counts[name] = counts.get(name, 0) + int(torch.stack(ts).sum())
     return {
         "spans": spans,
         "reads": {k: {"count": c, "wait_ms": ns * 1e-6}
                   for k, (c, ns) in _reads.items()},
-        "counts": dict(_counts),
+        "counts": counts,
         "launches": {k: n for counts in _launches.values()
                      for k, n in counts().items()},
         "anchor": [unix0, perf0],

@@ -19,6 +19,8 @@ torch.set_num_threads(2)
 
 SMALL = dict(nz=3, nr=2, nst=3000, n_slots=4096, num_nt=50, n_vol=64,
              nphfield=64, device="cpu")
+# the gate's pair corona (tools/pallas_e2e.py), at SMALL's size
+PAIRS = dict(SMALL, pair_switch=1, amxwl=0.5, gmin=3.0, gmax=20.0)
 
 
 @pytest.fixture(autouse=True)
@@ -63,14 +65,22 @@ def test_off_span_and_read_take_no_clock(monkeypatch):
 
 def test_off_no_clock_event_or_record_function_at_any_site(monkeypatch,
                                                            tmp_path):
-    """A corona step and a blob step with its event file and outputs, to
-    t_stop and post-processed, with every clock forbidden."""
+    """A corona step, a pair corona step and a blob step with its event
+    file and outputs, to t_stop and post-processed, with every clock
+    forbidden; the pair step computes none of its counts."""
     from compton2d_tpu_torch import run_mrk421
     from compton2d_tpu_torch.examples import mrk421
     from compton2d_tpu_torch.io import events
 
+    counted = []
+    count = tm.count
+    monkeypatch.setattr(tm, "count", lambda name, n: (
+        counted.append(name), count(name, n)))
     _forbid_clocks(monkeypatch)
     _run(small_corona(**SMALL), 2)
+    _run(small_corona(**PAIRS), 2)
+    assert not [c for c in counted if c.startswith("pairs.")]
+    assert tm._card_counts == {}
     sim = mrk421(nz=4, nr=2, nst=400, n_slots=4096, num_nt=60, n_vol=32,
                  nphfield=32, n_e=2e6, device="cpu")
     d = str(tmp_path)
@@ -90,16 +100,22 @@ def _state_equal(a, b):
 
 
 def test_on_and_off_give_bitwise_equal_steps():
-    off = small_corona(**SMALL)
-    outs_off = _run(off, 2)
-    tm.enable()
-    on = small_corona(**SMALL)
-    outs_on = _run(on, 2)
-    tm.disable()
-    _state_equal(off.state, on.state)
-    for a, b in zip(outs_off, outs_on):
-        _state_equal(a, b)
-    assert tm.snapshot()["spans"]["step"]["calls"] == 2
+    """The corona and the pair corona, whose counts are kept on the card
+    while on."""
+    for kw in (SMALL, PAIRS):
+        tm.reset()
+        off = small_corona(**kw)
+        outs_off = _run(off, 2)
+        tm.enable()
+        on = small_corona(**kw)
+        outs_on = _run(on, 2)
+        tm.disable()
+        _state_equal(off.state, on.state)
+        for a, b in zip(outs_off, outs_on):
+            _state_equal(a, b)
+        snap = tm.snapshot()
+        assert snap["spans"]["step"]["calls"] == 2
+        assert ("pairs.gg_photons" in snap["counts"]) == (kw is PAIRS)
 
 
 def _inside(child, parents) -> bool:
@@ -129,6 +145,53 @@ def test_spans_nest_within_their_parents():
     # budget), the sourcing likewise (the budget, then the emission)
     assert snap["step.census"]["calls"] == 4
     assert snap["step.source"]["calls"] == 4
+
+
+def test_pair_spans_nest_under_step_pairs():
+    sim = small_corona(**PAIRS)
+    tm.enable()
+    _run(sim, 2)
+    snap = tm.snapshot()["spans"]
+    kids = ("pairs.field", "pairs.fit", "pairs.rates")
+    assert snap["step.pairs"]["calls"] == 2
+    for k in kids:
+        assert snap[k]["calls"] == 2
+        for iv in snap[k]["intervals"]:
+            assert _inside(iv, snap["step.pairs"]["intervals"]), k
+    assert sum(snap[k]["host_ms"] for k in kids) \
+        <= snap["step.pairs"]["host_ms"]
+    # in order inside each step: the field, its fit, the rates
+    for i in range(2):
+        ends = [snap[k]["intervals"][i] for k in kids]
+        assert all(a[1] <= b[0] for a, b in zip(ends, ends[1:]))
+
+
+def test_pair_counts_equal_counts_made_directly(monkeypatch):
+    """``pairs.gg_photons``: the census photons alive with an energy on
+    the gamma-gamma grid (above one ratio under its first point);
+    ``pairs.fit_zones``: the zones whose raw field tops 1 in its 2nd and
+    10th bins (pp2d.f:384-386); each over two steps."""
+    from compton2d_tpu_torch import driver
+
+    want = {"pairs.gg_photons": 0, "pairs.fit_zones": 0}
+    real = driver.pair_fields
+
+    def spy(photons, zones, tables, *a, **k):
+        x = (torch.log(photons.e) - tables.e_gg_log0) / tables.e_gg_dlog
+        want["pairs.gg_photons"] += int(torch.sum(photons.alive & (x > -1)))
+        pf = real(photons, zones, tables, *a, **k)
+        raw = pf.nph_raw.reshape(-1, pf.nph_raw.shape[-1])
+        want["pairs.fit_zones"] += int(torch.sum((raw[:, 1] > 1)
+                                                 & (raw[:, 9] > 1)))
+        return pf
+
+    monkeypatch.setattr(driver, "pair_fields", spy)
+    sim = small_corona(**PAIRS)
+    tm.enable()
+    _run(sim, 2)
+    counts = tm.snapshot()["counts"]
+    assert want["pairs.gg_photons"] > 0 and want["pairs.fit_zones"] > 0
+    assert {k: counts[k] for k in want} == want
 
 
 def test_fp_done_reads_are_the_substep_loop_tests():

@@ -9,7 +9,7 @@ Phases (any failure raises and the script exits non-zero):
 1. card and build: the card's name and power limit, the torch / CUDA
    versions, and the nvcc build of ``csrc/flight.cu`` for sm_90a with
    ptxas's registers, stack and spills of each kernel instance, and of
-   ``csrc/fp_substeps.cu``;
+   ``csrc/fp_substeps.cu`` and ``csrc/volume_em.cu``;
 2. the flight kernel in its inline-scatter mode against its plain
    PyTorch version on the card, at the main path's shapes (131072 slots,
    8x4 zones, 400 energy and 200 gamma bins) with inputs made by numpy
@@ -212,6 +212,25 @@ Phases (any failure raises and the script exits non-zero):
    beside fp_step's bound (``roofline.fp_bound``: the benchmark's
    ``fp_roofline_pct`` model), and ptxas's registers and shared memory.
    Phase 2's main path also counts one FP kernel launch a step.
+14. the synchrotron sums kernel (``csrc/volume_em.cu``, one launch a
+   step) on the configurations of the benchmark's one-card cells as its
+   harness builds them (``compare_volume_em.cell_sim``): the Mrk 421
+   dense run from t = 0 (10x4 zones, 5 steps), corona99 after its 4
+   set-up steps (99x99, 1 step) and the pair corona after its 4 (4x3, 1
+   step). The launch count, set to 0 before the cell's main-path steps,
+   must equal them. On the last step's inputs: each of corona99.ranks4's
+   four 2451-zone slices (``zone_slice``'s, the last zone repeated into
+   the pad) bit for bit the whole grid's rows; the kernel against the
+   plain version (``compare_volume_em.compare``: both sums within what
+   the order of 200 float32 terms allows, 2 x 199 units of the last
+   place of the terms' magnitudes) on each cell and on rank 0's slice;
+   then the kernel on the device alone (CUDA events around 20 launches)
+   beside its bound (``roofline.volume_em_bound``, the benchmark's
+   ``volume_em_roofline_pct`` model), the plain version's time (medians
+   of VE_TURNS) and the share of terms it skips (t >= 1e4, or exp(-2 ts)
+   underflowing). Phase 3's
+   main path also counts one launch a step, and phase 9's ranks one a
+   zone_shard step each.
 
 From phase 2 to phase 11 every Simulation built in this process (and in
 phase 9's ranks) and every step it takes must select the flight kernel
@@ -259,9 +278,10 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from compton2d_tpu_torch import (bench, collectives, compare_fp, decks,
-                                 driver, dryrun, e2e_gate, kernel_build,
-                                 obs_compare, roofline, run_mrk421)
+from compton2d_tpu_torch import (bench, collectives, compare_fp,
+                                 compare_volume_em, decks, driver, dryrun,
+                                 e2e_gate, kernel_build, obs_compare,
+                                 roofline, run_mrk421)
 from compton2d_tpu_torch.config import RunConfig
 from compton2d_tpu_torch.constants import SIGMA_THOMSON
 from compton2d_tpu_torch.examples import corona_config, small_corona
@@ -269,6 +289,7 @@ from compton2d_tpu_torch.fp import update
 from compton2d_tpu_torch.io import checkpoint, native
 from compton2d_tpu_torch.parallel import distributed
 from compton2d_tpu_torch.physics import coulomb
+from compton2d_tpu_torch.physics import emissivity
 from compton2d_tpu_torch.state import PhotonArray
 from compton2d_tpu_torch.physics.electron_dist import gnt_grid
 from compton2d_tpu_torch.tables import e_field_grid, e_gg_grid
@@ -724,6 +745,7 @@ def phase_main_path(device, card: str) -> int:
     outs = []
     flight.reset_launch_counts()
     update.reset_launch_counts()
+    emissivity.reset_launch_counts()
     for _ in range(WARM_STEPS):
         outs.append(sim.step())
     torch.cuda.synchronize()
@@ -741,6 +763,12 @@ def phase_main_path(device, card: str) -> int:
     if fp_launches != len(outs):
         raise AssertionError("the main path's FP steps did not each launch "
                              "the FP substep kernel once")
+    ve_launches = emissivity.launch_counts()["volume_em"]
+    log(f"main path: {ve_launches} volume_em kernel launches in "
+        f"{len(outs)} steps")
+    if ve_launches != len(outs):
+        raise AssertionError("the main path's zone passes did not each "
+                             "launch the volume_em kernel once")
     if (flight.STRAT_LAUNCHES or flight.PAIR_LAUNCHES or flight.WINDOW_LAUNCHES
             or flight.GLOBAL_LAUNCHES):
         raise AssertionError("small_corona launched the strat, pair or "
@@ -2018,8 +2046,12 @@ def rank_farm_and_repeat(mesh, device, ref_outs) -> dict:
     off = on.with_config(dataclasses.replace(on.cfg, run=dataclasses.replace(
         on.cfg.run, zone_shard=False)))
     repeat, farm = [], []
+    ve_launches = []
     for i in range(P9_FARM_STEPS):
-        a, b = on.step(), off.step()
+        emissivity.reset_launch_counts()
+        a = on.step()
+        ve_launches.append(emissivity.launch_counts()["volume_em"])
+        b = off.step()
         bad = tallies_equal(a, ref_outs[i])
         if bad:
             repeat.append(f"step {i} {bad}")
@@ -2028,7 +2060,7 @@ def rank_farm_and_repeat(mesh, device, ref_outs) -> dict:
             farm.append(f"step {i} {bad}")
     farm += [f"zones {f} max |diff| {d:.3e}"
              for f, d in zone_differences(on.state.zones, off.state.zones)]
-    return dict(repeat=repeat, farm=farm,
+    return dict(repeat=repeat, farm=farm, ve_launches=ve_launches,
                 substeps_off=int(b.fp_substeps), substeps_on=int(a.fp_substeps))
 
 
@@ -2148,6 +2180,9 @@ def phase_ranks(device, card: str) -> Tuple[int, dict]:
         if f["repeat"] or f["farm"]:
             raise AssertionError(f"rank {rank}: not repeatable {f['repeat']}"
                                  f"; zone_shard on vs off {f['farm']}")
+        if f["ve_launches"] != [1] * P9_FARM_STEPS:
+            raise AssertionError(f"rank {rank}: volume_em launches "
+                                 f"{f['ve_launches']} in zone_shard steps")
         ex = m["exchanges"]
         if not ex["steps_equal"] or ex["bytes_per_step"][0] != m[
                 "comm_bytes_step"]:
@@ -2744,6 +2779,93 @@ def phase_fp(device, card: str) -> list:
     return entries
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the synchrotron sums kernel
+# ---------------------------------------------------------------------------
+# each benchmark cell run on one card and the main-path steps run after its
+# set-up, the kernel compared on the last one's inputs
+VE_CELLS = (("mrk421_dense.to_tstop", 5), ("corona99.evolve", 1),
+            ("pair_corona.evolve", 1))
+VE_TURNS = 5
+
+
+def phase_volume_em(device, card: str) -> list:
+    """Phase 14 (module docstring): the kernel's launches on each cell's
+    main path, the kernel against the plain version, the zone farm's
+    slices against the whole grid, and the times; returns the kernels
+    line's entry of each shape."""
+    emissivity.build()
+    log(f"volume_em kernel: {emissivity.ptxas_report()}; a block of "
+        f"{emissivity.block_threads(400)} threads at n_vol 400, "
+        f"{emissivity.shared_bytes(200)} bytes of shared memory at num_nt "
+        "200")
+    entries = []
+    for cell, steps in VE_CELLS:
+        sim, setup = compare_volume_em.cell_sim(cell, device)
+        sim.run(setup)
+        emissivity.reset_launch_counts()
+        recorded = compare_volume_em.sums_inputs(sim, steps)
+        torch.cuda.synchronize()
+        launches = emissivity.launch_counts()["volume_em"]
+        log(f"volume_em {cell}: {launches} kernel launches in {steps} "
+            f"main-path steps after {setup} set-up steps")
+        if not launches == len(recorded) == steps:
+            raise AssertionError(f"volume_em {cell}: {launches} launches, "
+                                 f"{len(recorded)} zone passes in {steps}")
+        del sim
+        x = recorded[-1]
+        shapes = [(cell, x)]
+        if cell == "corona99.evolve":
+            # the zone farm's slices on corona99.ranks4's ranks
+            j, k = emissivity.sync_sums(*x)
+            Z = x.fw.shape[0]
+            for rank in range(compare_volume_em.RANKS):
+                idx = compare_volume_em.rank_zones(Z, rank)
+                part = compare_volume_em.zone_part(x, idx)
+                js, ks = emissivity.sync_sums(*part)
+                if not (torch.equal(js, j[idx]) and torch.equal(ks, k[idx])):
+                    raise AssertionError(f"volume_em rank {rank}'s slice "
+                                         "differs from the whole grid")
+                if rank == 0:
+                    shapes.append(("corona99.ranks4 rank 0", part))
+            log(f"volume_em corona99.ranks4: each rank's slice of "
+                f"{len(idx)} zones bit for bit the whole grid's rows")
+        for label, xi in shapes:
+            c = compare_volume_em.compare(xi)
+            torch.cuda.synchronize()
+            log(compare_volume_em.describe(c, f"volume_em {label}"))
+            bad = compare_volume_em.departures(c)
+            if bad:
+                raise AssertionError(f"volume_em {label}: the kernel departs "
+                                     f"from the plain version: {bad}")
+            kernel_ms = events_ms(emissivity.launch_only(*xi))
+            plain = fp_events_ms(
+                lambda: emissivity.sync_sums_reference(*xi), VE_TURNS)
+            Z, N = xi.fw.shape
+            V = xi.nu21.shape[0]
+            bound = roofline.volume_em_bound(Z, V, N)
+            ms_p = statistics.median(plain)
+            log(f"volume_em {label} on {card}: kernel {kernel_ms:.4f} ms on "
+                f"the device alone, bound {bound['bound_ms']:.6f} ms by "
+                f"{bound['bound_by']} (the benchmark's model: {bound['ops']} "
+                f"operations, {bound['bytes']} bytes; {Z} zones x {V} x {N}), "
+                f"{100 * bound['bound_ms'] / kernel_ms:.4f}% of it; the plain "
+                f"version {ms_p:.3f} ms (median of {VE_TURNS}: "
+                f"{['%.3f' % t for t in plain]}); terms skipped "
+                f"{100 * sum(c.skipped):.2f}%")
+            entries.append({
+                "name": f"volume_em_kernel.{label.replace(' ', '_')}",
+                "route": "cuda",
+                "source": "compton2d_tpu_torch/csrc/volume_em.cu",
+                "replaces": None, "library_ms": None,
+                "launches": launches if label == cell else 0,
+                "j_gap": c.j_gap, "k_gap": c.k_gap, "gap_limit": c.limit,
+                "skipped_share": sum(c.skipped), "ms": kernel_ms,
+                "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"],
+                "plain_ms": ms_p})
+    return entries
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2759,6 +2881,9 @@ def main() -> int:
     log(flight.ptxas_report())
     build_s = update.build()
     log(f"built {kernel_build.library_path(update._SOURCE).name} in "
+        f"{build_s:.2f} s")
+    build_s = emissivity.build()
+    log(f"built {kernel_build.library_path(emissivity._SOURCE).name} in "
         f"{build_s:.2f} s")
 
     device = torch.device("cuda", 0)
@@ -2791,6 +2916,7 @@ def main() -> int:
     launches_dryrun = phase_entry_points(device, card, gates)
     launches_loop_phase = phase_loop(device, card, select)
     k_fp = phase_fp(device, card)
+    k_ve = phase_volume_em(device, card)
 
     replaces = "compton2d_tpu/transport/flight_pallas2.py:347"
     log(json.dumps({"kernels": [
@@ -2831,6 +2957,7 @@ def main() -> int:
          "replaces": replaces, "launches": launches_ec,
          "library_ms": None, **k_ec},
         *k_fp,
+        *k_ve,
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -35,6 +35,7 @@ from compton2d_tpu_torch.driver import Simulation
 from compton2d_tpu_torch.examples import corona_config
 from compton2d_tpu_torch.fp import update
 from compton2d_tpu_torch.parallel import distributed
+from compton2d_tpu_torch.physics import emissivity
 from compton2d_tpu_torch.transport import flight
 
 # the JAX entry's shapes: the tiny corona (1024 slots a rank: the port's
@@ -186,6 +187,7 @@ def dryrun_multichip(world: int, device="cuda", backend: str = "gloo",
         # the ranks only load the kernel libraries: build them once, here
         flight.build()
         update.build()
+        emissivity.build()
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(dir=rendezvous_dir) as tmp:
         ranks = distributed.run_ranks(

@@ -28,7 +28,6 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import re
 from pathlib import Path
 from time import perf_counter
 from typing import NamedTuple, Optional
@@ -632,14 +631,7 @@ def build() -> float:
 def ptxas_report() -> str:
     """ptxas's registers, stack and spills for the kernel of the loaded
     build (:func:`build` first)."""
-    txt = kernel_build.ptxas_text(_SOURCE)
-    keep, out = False, []
-    for ln in txt.splitlines():
-        if "Compiling entry function" in ln:
-            keep = "fp_substeps_kernel" in ln
-        elif keep and re.search(r"registers|spill|stack", ln):
-            out.append(ln.replace("ptxas info    : ", "").strip())
-    return "; ".join(out) or txt.strip()
+    return kernel_build.ptxas_entry(_SOURCE, "fp_substeps_kernel")
 
 
 def block_threads(num_nt: int) -> int:

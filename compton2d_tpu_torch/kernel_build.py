@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -74,6 +75,18 @@ def compile_source(source: Path) -> Path:
 def ptxas_text(source: Path) -> str:
     """ptxas's report of ``source``'s build (:func:`compile_source`)."""
     return library_path(source).with_suffix(".ptxas.txt").read_text()
+
+
+def ptxas_entry(source: Path, entry: str) -> str:
+    """ptxas's registers, stack and spills for the entry function whose
+    name holds ``entry`` in ``source``'s build."""
+    keep, out = False, []
+    for ln in ptxas_text(source).splitlines():
+        if "Compiling entry function" in ln:
+            keep = entry in ln
+        elif keep and re.search(r"registers|spill|stack", ln):
+            out.append(ln.replace("ptxas info    : ", "").strip())
+    return "; ".join(out) or ptxas_text(source).strip()
 
 
 def check(t: torch.Tensor, name: str, dtype, shape, device) -> None:

@@ -2,21 +2,32 @@
 (counterpart of ``compton2d_tpu.physics.emissivity``).
 
 The host numpy fits (``expk13``, ``expk43``, ``sync_kernel``) are copies
-of the reference's; ``volume_em`` evaluates the closed-form synchrotron
-kernel on the device batched as (zones, n_vol, num_nt), in chunks of
-zones that keep each such intermediate at or below ZONE_CHUNK_ELEMS
-elements (a 99x99 grid at 400 x 200 bins would need 3.1 GB per
-intermediate at once), in float32 with the reference's unit scaling
-(lengths /L, energies /E, frequencies folded by 1e21 Hz).
+of the reference's. ``volume_em`` computes all zones at once in float32
+with the reference's unit scaling (lengths /L, energies /E, frequencies
+folded by 1e21 Hz). Its synchrotron emission and absorption sums over
+the electron distribution (:func:`sync_sums`) are, on a CUDA card, one
+launch of the hand-written kernel ``csrc/volume_em.cu`` a step
+(:func:`sync_sums_kernel`: a block a zone, a thread a photon bin, the
+closed-form shape evaluated and summed over gamma in registers); on the
+CPU they are its plain version, :func:`sync_sums_reference`, which
+evaluates the shape batched as (zones, n_vol, num_nt) in chunks of zones
+that keep each such intermediate at or below ZONE_CHUNK_ELEMS elements
+(a 99x99 grid at 400 x 200 bins would need 3.1 GB per intermediate at
+once).
 """
 from __future__ import annotations
 
+import ctypes
+from pathlib import Path
+from time import perf_counter
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from compton2d_tpu_torch import constants as cn
+from compton2d_tpu_torch import kernel_build
+from compton2d_tpu_torch import telemetry as tm
 from compton2d_tpu_torch.units import Scales
 
 _SIGMA_T = 6.6524616e-25
@@ -180,6 +191,186 @@ def normalized_cdf(p: torch.Tensor) -> torch.Tensor:
     return torch.where(pos, p / torch.where(pos, total, 1.0), 1.0)
 
 
+def sync_sums(nu21, gamma, nu_b, face, fw, sg):
+    """The synchrotron emission and absorption sums over gamma of every
+    zone and photon bin, (Z, n_vol) each: on CUDA tensors one launch of
+    ``csrc/volume_em.cu`` (:func:`sync_sums_kernel`), on CPU tensors the
+    plain version (:func:`sync_sums_reference`)."""
+    if fw.device.type == "cpu":
+        return sync_sums_reference(nu21, gamma, nu_b, face, fw, sg)
+    if fw.device.type != "cuda":
+        raise ValueError(f"volume_em: unsupported device {fw.device}")
+    return sync_sums_kernel(nu21, gamma, nu_b, face, fw, sg)
+
+
+def sync_sums_reference(nu21, gamma, nu_b, face, fw, sg):
+    """The plain version of :func:`sync_sums`: nu21 (n_vol,) and gamma
+    (num_nt,) rows, nu_b and face (Z, 1), fw and sg (Z, num_nt); the
+    shape evaluated batched as (zones, n_vol, num_nt) in chunks of zones
+    of at most ZONE_CHUNK_ELEMS elements and summed over gamma."""
+    Z, num_nt = fw.shape
+    n_vol = nu21.shape[0]
+    chunk = max(1, ZONE_CHUNK_ELEMS // (n_vol * num_nt))
+    j_parts, k_parts = [], []
+    for z0 in range(0, Z, chunk):
+        zs = slice(z0, z0 + chunk)
+        # t(nu, gamma) = nu / (3 gamma^2 nu_b), (chunk, n_vol, num_nt)
+        t = nu21[None, :, None] / (
+            3.0 * (gamma * gamma)[None, None, :]
+            * (nu_b[zs] / _NU_FOLD)[:, :, None]
+        )
+        es = face[zs, :, None] * sync_kernel_f32(t)
+        # products summed over gamma: a zone's sums do not depend on the
+        # number of zones beside it (a batched matmul picks its kernel by
+        # the shape), so the zone farm's slices equal the whole grid
+        j_parts.append(torch.sum(es * fw[zs, None, :], dim=-1))
+        k_parts.append(torch.sum(es * sg[zs, None, :], dim=-1))
+    return torch.cat(j_parts), torch.cat(k_parts)
+
+
+# ---------------------------------------------------------------------------
+# CUDA kernel: build, bind, launch
+# ---------------------------------------------------------------------------
+_SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "volume_em.cu"
+MAX_THREADS = 512    # photon bins a block takes (the kernel's)
+MAX_BINS = 4096      # electron bins it stages in shared memory
+MAX_GRID = 65535     # blocks a launch; they loop over the zones beyond
+# kernel launches made by sync_sums on CUDA tensors; the plain version on
+# CPU tensors does not count
+_launches = 0
+_lib = None
+_OPERANDS = ("nu21", "g3", "nbf", "face", "fw", "sg", "j", "k")
+
+
+class _Args(ctypes.Structure):
+    """``struct Args`` of csrc/volume_em.cu."""
+
+    _fields_ = ([(k, ctypes.c_void_p) for k in _OPERANDS]
+                + [(k, ctypes.c_int) for k in ("z", "v", "n")])
+
+
+def launch_counts() -> dict:
+    """The kernel's launches since the last reset."""
+    return dict(volume_em=_launches)
+
+
+def reset_launch_counts() -> None:
+    """Set the launch count to 0."""
+    global _launches
+    _launches = 0
+
+
+tm.register_launches(__name__, launch_counts)
+
+
+def build() -> float:
+    """Compile ``csrc/volume_em.cu`` into its hash-keyed library under
+    ``_build/`` if that is missing (``kernel_build.compile_source``) and
+    load it as the kernel that :func:`sync_sums_kernel` launches. Returns
+    the seconds spent."""
+    global _lib
+    t0 = perf_counter()
+    path = kernel_build.compile_source(_SOURCE)
+    if _lib is None or Path(_lib._name) != path:
+        lib = ctypes.CDLL(str(path))
+        lib.volume_em_args_bytes.argtypes = []
+        lib.volume_em_args_bytes.restype = ctypes.c_int
+        lib.volume_em_launch.argtypes = [
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_void_p]
+        lib.volume_em_launch.restype = ctypes.c_int
+        if lib.volume_em_args_bytes() != ctypes.sizeof(_Args):
+            raise RuntimeError(f"{path.name}: struct bytes "
+                               f"{lib.volume_em_args_bytes()}, the wrapper's "
+                               f"{ctypes.sizeof(_Args)}")
+        _lib = lib
+    return perf_counter() - t0
+
+
+def ptxas_report() -> str:
+    """ptxas's registers, stack and spills for the kernel of the loaded
+    build (:func:`build` first)."""
+    return kernel_build.ptxas_entry(_SOURCE, "volume_em_kernel")
+
+
+def block_threads(n_vol: int) -> int:
+    """The kernel's block: one thread a photon bin, in whole warps, at
+    most MAX_THREADS (threads loop over the bins beyond)."""
+    return min(-(-n_vol // 32) * 32, MAX_THREADS)
+
+
+def shared_bytes(num_nt: int) -> int:
+    """A block's dynamic shared memory: the zone's denominators, fw and
+    sg rows."""
+    return 3 * 4 * num_nt
+
+
+class _Prepared(NamedTuple):
+    """A checked kernel launch: its C arguments, and the operands and
+    outputs its pointers point to."""
+
+    args: _Args
+    threads: int
+    grid: int
+    stream: int
+    ops: dict
+
+
+def _prepare(nu21, gamma, nu_b, face, fw, sg) -> _Prepared:
+    """Check the CUDA operands, make the kernel's, allocate the outputs
+    and collect the launch's arguments."""
+    Z, N = fw.shape
+    V = nu21.shape[0]
+    dev = fw.device
+    if not 1 <= N <= MAX_BINS:
+        raise ValueError(f"volume_em kernel: num_nt={N} outside "
+                         f"1..{MAX_BINS}")
+    # the plain version's factors of t, by the same operations
+    ops = dict(nu21=nu21, g3=3.0 * (gamma * gamma),
+               nbf=(nu_b / _NU_FOLD).reshape(Z), face=face.reshape(Z),
+               fw=fw, sg=sg)
+    shapes = dict(nu21=(V,), g3=(N,), nbf=(Z,), face=(Z,), fw=(Z, N),
+                  sg=(Z, N))
+    for k, t in ops.items():
+        kernel_build.check(t, k, torch.float32, shapes[k], dev)
+    ops["j"] = torch.empty(Z, V, dtype=torch.float32, device=dev)
+    ops["k"] = torch.empty(Z, V, dtype=torch.float32, device=dev)
+    if _lib is None:
+        build()
+    args = _Args(*[ops[k].data_ptr() for k in _OPERANDS], Z, V, N)
+    return _Prepared(args, block_threads(V), min(Z, MAX_GRID),
+                     torch.cuda.current_stream(dev).cuda_stream, ops)
+
+
+def _launch(prep: _Prepared) -> None:
+    """One launch of the loaded kernel."""
+    rc = _lib.volume_em_launch(ctypes.byref(prep.args),
+                               ctypes.sizeof(prep.args), prep.grid,
+                               prep.threads, prep.stream)
+    if rc != 0:
+        raise RuntimeError(f"volume_em kernel launch failed: cudaError {rc}")
+
+
+def launch_only(nu21, gamma, nu_b, face, fw, sg):
+    """The timing hook: checks the operands and allocates the outputs once
+    and returns a callable that launches the kernel alone on them (its
+    launches are not counted)."""
+    prep = _prepare(nu21, gamma, nu_b, face, fw, sg)
+    return lambda: _launch(prep)
+
+
+def sync_sums_kernel(nu21, gamma, nu_b, face, fw, sg):
+    """:func:`sync_sums` as one launch of ``csrc/volume_em.cu`` (built at
+    first use) on CUDA tensors: a block a zone, a thread a photon bin, the
+    shape evaluated and summed over gamma in registers, in ascending
+    gamma. Raises on operands it does not take."""
+    global _launches
+    prep = _prepare(nu21, gamma, nu_b, face, fw, sg)
+    _launch(prep)
+    _launches += 1
+    return prep.ops["j"], prep.ops["k"]
+
+
 def volume_em(e_ph, gnt, f_nt, tea, n_e, B, amxwl, vol, zsurf, l_min, dt,
               scales: Scales, f_pair=None) -> VolumeEmission:
     """All zones at once (volume2d.f:10-390 + imcgen2d.f:276-335)."""
@@ -224,23 +415,9 @@ def volume_em(e_ph, gnt, f_nt, tea, n_e, B, amxwl, vol, zsurf, l_min, dt,
     dfg = f / gamp
     slope = torch.cat([dfg[:, :-1] - dfg[:, 1:], dfg[:, -1:] * 0.0], dim=1)
     fw, sg = f * wdg, slope * gamp
-    chunk = max(1, ZONE_CHUNK_ELEMS // (n_vol * num_nt))
-    j_parts, k_parts = [], []
-    for z0 in range(0, Z, chunk):
-        zs = slice(z0, z0 + chunk)
-        # t(nu, gamma) = nu / (3 gamma^2 nu_b), (chunk, n_vol, num_nt)
-        t = nu21[None, :, None] / (
-            3.0 * (gamma * gamma)[None, None, :]
-            * (nu_b[zs] / _NU_FOLD)[:, :, None]
-        )
-        es = face[zs, :, None] * sync_kernel_f32(t)
-        # products summed over gamma: a zone's sums do not depend on the
-        # number of zones beside it (a batched matmul picks its kernel by
-        # the shape), so the zone farm's slices equal the whole grid
-        j_parts.append(torch.sum(es * fw[zs, None, :], dim=-1))
-        k_parts.append(torch.sum(es * sg[zs, None, :], dim=-1))
-    j_sy = torch.cat(j_parts) * nez / (4.0 * np.pi)
-    kap_sy = torch.cat(k_parts) * nez * k_kap_sy / (nu21 * nu21)
+    j_sum, k_sum = sync_sums(nu21, gamma, nu_b, face, fw, sg)
+    j_sy = j_sum * nez / (4.0 * np.pi)
+    kap_sy = k_sum * nez * k_kap_sy / (nu21 * nu21)
     kap_sy = torch.abs(kap_sy)
     below_plasma = nu21 <= nu_p21
     j_sy = torch.where(below_plasma, 0.0, j_sy)

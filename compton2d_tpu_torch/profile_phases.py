@@ -50,6 +50,7 @@ from compton2d_tpu_torch import telemetry as tm
 from compton2d_tpu_torch.bench import card_line
 from compton2d_tpu_torch.examples import small_corona
 from compton2d_tpu_torch.fp import update
+from compton2d_tpu_torch.physics import emissivity
 from compton2d_tpu_torch.transport import flight
 
 
@@ -115,6 +116,7 @@ def main(argv=None):
     device = torch.device("cuda", 0)
     flight.build()
     update.build()
+    emissivity.build()
 
     sim = make_sim(args.config, device)
     torch.cuda.reset_peak_memory_stats(device)

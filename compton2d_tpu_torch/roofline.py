@@ -15,7 +15,9 @@ Two models, one byte count:
 
 And the FP solve's (``chip_smoke.py`` phase 13): :func:`fp_bound`, the
 work model of the benchmark's ``fp_roofline_pct`` for one step, and
-:func:`fp_kernel_bound`, the substep kernel's own work.
+:func:`fp_kernel_bound`, the substep kernel's own work; the zone pass's
+(phase 14): :func:`volume_em_bound`, the work model of the benchmark's
+``volume_em_roofline_pct``.
 """
 from __future__ import annotations
 
@@ -41,6 +43,10 @@ SOA_IN, SOA_OUT = 12, 20
 # coefficients with the drift and dispersion terms (52) and one
 # tridiagonal solve (8, Thomas's count, the least a solve needs)
 FP_OPS_BIN_SUBSTEP = 60
+# the zone pass's operations a (zone, photon bin, electron bin) term: the
+# synchrotron shape's argument, both branches of its two Bessel fits and
+# the shape (79), the two sums (4) and the argument's products
+VOLUME_EM_OPS_TERM = 90
 
 
 def table_elems(tables, pairs: bool) -> int:
@@ -139,3 +145,13 @@ def fp_kernel_bound(zones: int, num_nt: int, zone_substeps: int) -> dict:
     a zone that is done stops)."""
     return _bound(zones * (3 * num_nt + 25) * 4,
                   zone_substeps * num_nt * FP_OPS_BIN_SUBSTEP)
+
+
+def volume_em_bound(zones: int, n_vol: int, num_nt: int) -> dict:
+    """The least time of one step's zone pass (``benchmark/metrics/
+    volume_em_roofline_pct.py``'s model), which the synchrotron sums
+    kernel (``csrc/volume_em.cu``) does nearly all of: VOLUME_EM_OPS_TERM
+    operations a term, each zone's distribution and 13 scalars read and
+    its three n_vol rows written, the grids read once."""
+    return _bound(zones * (num_nt + 13 + 3 * n_vol) * 4 + (n_vol + num_nt) * 4,
+                  zones * n_vol * num_nt * VOLUME_EM_OPS_TERM)

@@ -13,6 +13,7 @@ from compton2d_tpu_torch import telemetry as tm
 from compton2d_tpu_torch.examples import small_corona
 from compton2d_tpu_torch.fp import update
 from compton2d_tpu_torch.parallel.distributed import run_ranks
+from compton2d_tpu_torch.physics import emissivity
 from compton2d_tpu_torch.transport import flight
 
 torch.set_num_threads(2)
@@ -256,7 +257,8 @@ def test_read_counts_each_site_and_its_wait():
     assert snap["reads"]["fp.done"]["count"] == 1
     assert snap["counts"] == {"track.rounds": 3}
     assert snap["launches"] == dict(flight.launch_counts(),
-                                    **update.launch_counts())
+                                    **update.launch_counts(),
+                                    **emissivity.launch_counts())
     tm.reset()
     assert tm.snapshot()["reads"] == {}
 

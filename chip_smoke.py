@@ -372,6 +372,7 @@ def kernel_inputs(device, nz: int = NZ, nr: int = NR, seed: int = 0,
     tables = flight.build_flight_tables(
         t(np.stack([sig, kap], axis=-1)), t(cdf), t(gnt), t(r_edges),
         t(z_edges), float(np.log(e_ph[0])), float(np.log(e_ph[1] / e_ph[0])),
+        u_edges=torch.as_tensor(flight.guide_u_edges(), device=device),
         kgg_zone=kgg, e_gg_log0=e_gg_log0, e_gg_dlog=e_gg_dlog,
     )
     jz = rng.integers(0, nz, n)

@@ -7,7 +7,8 @@ arrive as flat dicts of numpy arrays keyed by dotted field names
 ``np.asarray`` accepts. :func:`from_reference` rebuilds the port's
 NamedTuples on a device, so both packages can run from the same state;
 the spectrum bank comes across inside the ``SourceStatic`` (the
-reference's quantile table, ``spec_inv``, has no counterpart),
+reference's quantile table, ``spec_inv``, has no counterpart, and its
+Planck CDF is the port's own),
 :func:`track_reflection` takes the reflection tables of a reference
 ``TrackContext`` and :func:`coulomb_tables` its ``CoulombTables``;
 :func:`shard_photons` cuts a reference census into the ranks' shares of a
@@ -24,6 +25,7 @@ from compton2d_tpu_torch.grid import Grid
 from compton2d_tpu_torch.physics.coulomb import CoulombTables
 from compton2d_tpu_torch.physics.electron_dist import GammaBarTable
 from compton2d_tpu_torch.physics.emissivity import SyncKernelTable
+from compton2d_tpu_torch.physics.planck import CDF_M
 from compton2d_tpu_torch.state import PhotonArray, SimState, ZoneState
 from compton2d_tpu_torch.tables import PairTables, Tables
 from compton2d_tpu_torch.transport.sourcing import SourceStatic
@@ -108,7 +110,7 @@ def from_reference(
         sim_state,
         tab,
         _build(Grid, grid, "", dev),
-        _build(SourceStatic, src, "", dev),
+        _build(SourceStatic, {**src, "planck_cdf": CDF_M}, "", dev),
         None if pair_tables is None
         else _build(PairTables, pair_tables, "", dev),
     )

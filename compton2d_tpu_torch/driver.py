@@ -17,7 +17,9 @@ synchrotron volume emission and shock injection, census roulette,
 stratified tail splitting, gamma-gamma pair physics, coronal flares,
 adaptive dt and the Coulomb FP drift. Tracking runs on the flight
 kernel or on the lock-step loop, as ``run.pallas_tracking`` selects
-(:func:`select_tracker`); ``Simulation.tracker`` says which.
+(:func:`select_tracker`); ``Simulation.tracker`` says which. What a step
+takes from the configuration, tables, grid and ranks alone is made once
+(:func:`step_constants`).
 
 Under a photon mesh (``parallel.mesh``: one process a rank) each rank
 owns ``n_slots / world`` slots, sources ``nst / world`` photons a step
@@ -52,7 +54,9 @@ from compton2d_tpu_torch import constants as cn
 from compton2d_tpu_torch import telemetry as tm
 from compton2d_tpu_torch.config import SimConfig, TimeWindow, ZoneInit
 from compton2d_tpu_torch.units import Scales, make_scales
-from compton2d_tpu_torch.fp.update import FPResult, fp_step, photon_fill
+from compton2d_tpu_torch.fp.update import (FPConstants, FPResult,
+                                           fp_constants, fp_step,
+                                           photon_fill)
 from compton2d_tpu_torch.grid import Grid, initial_dt, make_grid
 from compton2d_tpu_torch.io import outputs as outs
 from compton2d_tpu_torch.io.checkpoint import WalltimeGuard, save_checkpoint
@@ -69,7 +73,7 @@ from compton2d_tpu_torch.physics.coulomb import (
 )
 from compton2d_tpu_torch.physics.electron_dist import gnt_grid
 from compton2d_tpu_torch.physics.emissivity import equipartition_b, volume_em
-from compton2d_tpu_torch.physics import pairs
+from compton2d_tpu_torch.physics import pairs, planck
 from compton2d_tpu_torch.state import (
     EventBuffer,
     PhotonArray,
@@ -96,6 +100,7 @@ from compton2d_tpu_torch.transport.tracking import (
     hist2d,
     loggrid_bin,
     segment_sum,
+    strat_fractions,
     transport_step,
 )
 
@@ -208,7 +213,7 @@ def build_window_sources(cfg: SimConfig, scales: Scales,
             spec_lower=torch.as_tensor(sl, device=device),
             spec_upper=torch.as_tensor(su, device=device),
             flux_lower=f(fl_l), flux_upper=f(fl_u),
-            star_dilution=f(dilution),
+            star_dilution=f(dilution), planck_cdf=f(planck.CDF_M),
         )
         on.append(src)
         off.append(src._replace(flux_lower=f(np.zeros(g.nr)),
@@ -275,22 +280,112 @@ def select_tracker(cfg: SimConfig, world: int = 1) -> str:
     return "kernel" if fits else "loop"
 
 
-def check_slice(cfg: SimConfig, mesh: Optional[pmesh.PhotonMesh] = None
-                ) -> None:
-    """Raise ValueError for slots that do not split evenly over the ranks
-    and, when the flight kernel is selected, NotImplementedError for a
-    grid edge above flight.MAX_EDGE and ValueError for ranks' slots that
-    are not whole flight.TILE tiles."""
-    world = 1 if mesh is None else mesh.world
+def check_slice(cfg: SimConfig, world: int, tracker: str) -> None:
+    """Raise ValueError for slots that do not split evenly over the
+    ``world`` ranks and, on the flight kernel (``tracker``, as
+    :func:`select_tracker` chose it), NotImplementedError for a grid edge
+    above flight.MAX_EDGE and ValueError for ranks' slots that are not
+    whole flight.TILE tiles."""
     if cfg.run.n_slots % world:
         raise ValueError(f"n_slots={cfg.run.n_slots} must split evenly "
                          f"over {world} ranks")
-    if select_tracker(cfg, world) == "kernel":
+    if tracker == "kernel":
         flight.window_z(cfg.grid.nz, cfg.grid.nr)   # raises above 127
         if cfg.run.n_slots % (world * flight.TILE):
             raise ValueError(
                 f"n_slots={cfg.run.n_slots} must be a multiple of {world} "
                 f"ranks x {flight.TILE} on the flight kernel")
+
+
+class StepConstants(NamedTuple):
+    """What every step of a run takes from its configuration, tables,
+    grid, scales and ranks alone, made once by :func:`step_constants`:
+    a step re-derives and uploads none of it."""
+
+    cfg: SimConfig
+    grid: Grid
+    tables: Tables
+    scales: Scales
+    pair_tables: Optional[PairTables]
+    coulomb_tables: Optional[CoulombTables]
+    track: TrackStatics       # with the tracker and the strat cut
+    ctx: TrackContext         # its per-run fields; a step sets the rest
+    fp: FPConstants
+    rr_target: torch.Tensor   # () the census roulette's survivor target
+    l_min: torch.Tensor       # (nz, nr) the zones' least extent [L]
+    # () the least dt the FP ladder sets, min(dr_min, dz) L / c
+    # (update2d.f:257)
+    dt_min: torch.Tensor
+    win_z: int                # the zone sort's bucket (0: no sort)
+    zone_shard: bool          # the zone-batched phases on the zone farm
+
+
+def step_constants(cfg: SimConfig, grid: Grid, tables: Tables,
+                   scales: Scales, tracker: str, world: int = 1,
+                   pair_tables: Optional[PairTables] = None,
+                   coulomb_tables: Optional[CoulombTables] = None
+                   ) -> StepConstants:
+    """The StepConstants of ``cfg`` on ``world`` ranks with the tracker
+    ``tracker`` (:func:`select_tracker`)."""
+    g, phys, run, src = cfg.grid, cfg.physics, cfg.run, cfg.source
+    f32, dev = torch.float32, grid.vol.device
+    strat_icut = 0
+    if src.strat_split:
+        # the gnt index of the tail boundary gamma_c (gnt holds gamma - 1)
+        strat_icut = int(np.searchsorted(gnt_grid(g.num_nt),
+                                         src.strat_gamma_c - 1.0))
+        strat_icut = min(max(strat_icut, 1), g.num_nt - 1)
+    st = TrackStatics(
+        nz=g.nz, nr=g.nr, cr_sent=phys.cr_sent,
+        rmin_positive=g.r_min > 1e-10, max_iters=run.max_flight_iters,
+        max_scatter_tries=run.max_scatter_tries,
+        weight_floor=src.weight_floor, spec_switch=phys.spec_switch,
+        pair_switch=bool(phys.pair_switch), strat_split=src.strat_split,
+        strat_icut=strat_icut, strat_p_max=src.strat_p_max,
+        strat_copies=src.strat_copies, tracker=tracker,
+    )
+    e_field = tables.e_field
+    ctx = TrackContext(
+        r_edges=grid.r_edges.to(f32), z_edges=grid.z_edges.to(f32),
+        opac_zone=None, cdf_nt=None, gnt=tables.gnt,
+        e_ph_log0=float(tables.e_ph_log0), e_ph_dlog=float(tables.e_ph_dlog),
+        e_gg_log0=tables.e_gg_log0, e_gg_dlog=tables.e_gg_dlog,
+        e_field_log0=torch.log(e_field[0]),
+        e_field_dlog=torch.log(e_field[1] / e_field[0]),
+        hu=tables.hu, mu_edges=tables.mu_edges, lc_lo=tables.lc_lo,
+        lc_hi=tables.lc_hi, tbbl_pos=None, time=None, dt=None,
+        inv_c=float(np.float32(scales.inv_c)), e_ref=tables.e_ref,
+        p_ref_t=tables.p_ref.T.contiguous() if phys.cr_sent else None,
+        w_abs_t=tables.w_abs.T.contiguous() if phys.cr_sent else None,
+        guide_u=torch.as_tensor(flight.guide_u_edges(), device=dev),
+        e_gg_host=(float(tables.e_gg_log0), float(tables.e_gg_dlog)),
+        strat_frac=strat_fractions(src.strat_copies, dev),
+    )
+    return StepConstants(
+        cfg=cfg, grid=grid, tables=tables, scales=scales,
+        pair_tables=pair_tables, coulomb_tables=coulomb_tables, track=st,
+        ctx=ctx, fp=fp_constants(tables.gnt, float(g.z_max), phys),
+        rr_target=torch.tensor(run.census_rr_lo * (run.n_slots // world),
+                               dtype=f32, device=dev),
+        l_min=torch.minimum(grid.dz, grid.dr) * torch.ones_like(grid.vol),
+        dt_min=torch.minimum(torch.min(torch.diff(grid.r_edges)), grid.dz)
+        * float(np.float32(scales.L / cn.C_LIGHT)),
+        win_z=flight.window_z(g.nz, g.nr) if tracker == "kernel" else 0,
+        zone_shard=world > 1 and run.zone_shard and g.nz * g.nr >= world,
+    )
+
+
+def _held(name: str):
+    """A Simulation attribute that its StepConstants hold: setting it
+    remakes them, so that the next step sees the new value."""
+
+    def put(sim: "Simulation", value) -> None:
+        c = sim.consts._replace(**{name: value})
+        sim.consts = step_constants(
+            c.cfg, c.grid, c.tables, c.scales, sim.tracker,
+            1 if sim.mesh is None else sim.mesh.world, c.pair_tables,
+            c.coulomb_tables)
+    return property(lambda sim: getattr(sim.consts, name), put)
 
 
 class Simulation:
@@ -307,8 +402,15 @@ class Simulation:
     deterministically, so the driver tracks them on the host instead of
     reading the device scalars each step (under ``adaptive_dt`` it reads
     the new dt back after each step); assigning ``sim.state`` marks the
-    mirror dirty and the next ``step()`` resyncs it.
+    mirror dirty and the next ``step()`` resyncs it. ``cfg``, ``grid``,
+    ``tables``, ``scales``, ``pair_tables`` and ``coulomb_tables`` are
+    read from ``consts``, the run's :func:`step_constants`.
     """
+
+    cfg, grid, tables, scales, pair_tables, coulomb_tables = map(_held, (
+        "cfg", "grid", "tables", "scales", "pair_tables", "coulomb_tables"))
+    # "kernel" or "loop": the tracker every step runs (select_tracker)
+    tracker = property(lambda sim: sim.consts.track.tracker)
 
     @property
     def state(self) -> SimState:
@@ -330,11 +432,10 @@ class Simulation:
 
     def __init__(self, cfg: SimConfig, zone_init: Optional[ZoneInit] = None,
                  *, device="cuda", mesh: Optional[pmesh.PhotonMesh] = None):
-        check_slice(cfg, mesh)
-        self.cfg = cfg
+        world = 1 if mesh is None else mesh.world
+        tracker = select_tracker(cfg, world)
+        check_slice(cfg, world, tracker)
         self.mesh = mesh
-        # "kernel" or "loop": the tracker every step runs (select_tracker)
-        self.tracker = select_tracker(cfg, 1 if mesh is None else mesh.world)
         self.device = torch.device(device)
         if mesh is not None:
             if self.device.type != mesh.device.type or self.device.index \
@@ -348,18 +449,16 @@ class Simulation:
         self.zone_init = zone_init
         e_scale = cfg.run.energy_scale or _estimate_energy_scale(
             cfg, zone_init)
-        self.scales: Scales = make_scales(cfg.grid.z_max, cfg.grid.r_max,
-                                          e_scale)
-        self.grid: Grid = make_grid(cfg.grid, self.scales.L, dev)
-        self.tables: Tables = build_tables(cfg.grid, self.scales.L, dev)
-        zones = init_zone_state(cfg, zone_init, self.tables)
-        dt0 = initial_dt(self.grid, cfg.run.mcdt, cfg.physics.injection.v,
-                         length_scale=self.scales.L)
+        scales = make_scales(cfg.grid.z_max, cfg.grid.r_max, e_scale)
+        grid = make_grid(cfg.grid, scales.L, dev)
+        tables = build_tables(cfg.grid, scales.L, dev)
+        zones = init_zone_state(cfg, zone_init, tables)
+        dt0 = initial_dt(grid, cfg.run.mcdt, cfg.physics.injection.v,
+                         length_scale=scales.L)
         g = cfg.grid
         gen = torch.Generator(device=dev)
         gen.manual_seed(int(cfg.run.seed) if mesh is None
                         else pmesh.rank_seed(int(cfg.run.seed), mesh.rank))
-        world = 1 if mesh is None else mesh.world
 
         def zf(*shape):
             return torch.zeros(shape, dtype=torch.float32, device=dev)
@@ -376,14 +475,14 @@ class Simulation:
             k_gg=zf(g.nz, g.nr, g.n_gg), dn_pp=zf(g.nz, g.nr, g.num_nt),
             dne_pa=zf(g.nz, g.nr, g.num_nt), dnp_pa=zf(g.nz, g.nr, g.num_nt),
         )
-        self.pair_tables: Optional[PairTables] = (
-            build_pair_tables(cfg.grid, self.scales.L, dev)
-            if cfg.physics.pair_switch else None)
-        self.coulomb_tables: Optional[CoulombTables] = (
-            build_coulomb_tables(self.tables.gnt.cpu().numpy(),
+        self.consts = step_constants(
+            cfg, grid, tables, scales, tracker, world,
+            build_pair_tables(cfg.grid, scales.L, dev)
+            if cfg.physics.pair_switch else None,
+            build_coulomb_tables(tables.gnt.cpu().numpy(),
                                  lnL=cfg.physics.lnL, device=dev)
             if cfg.physics.fp_include_coulomb else None)
-        self.window_sources = build_window_sources(cfg, self.scales, dev)
+        self.window_sources = build_window_sources(cfg, scales, dev)
         self.src_static = self.window_sources.select(0.0, dt0, 0)
         self.last_outputs: Optional[StepOutputs] = None
         self.outputs: Optional[OutputAccumulator] = None
@@ -430,10 +529,8 @@ class Simulation:
             self.src_static = self.window_sources.select(
                 self._host_time, self._host_dt, self._host_ncycle)
             self._state, out = _step_impl(
-                self._state, self.src_static, self.grid, self.tables, self.cfg,
-                self.scales, self._host_ncycle, self.pair_tables,
-                self.coulomb_tables, self.mesh,
-            )
+                self._state, self.src_static, self._host_ncycle, self.mesh,
+                self.consts)
             self._host_time += self._host_dt
             self._host_dt_prev = self._host_dt
             self._host_ncycle += 1
@@ -534,10 +631,10 @@ class Simulation:
         if self.last_outputs is None:
             raise RuntimeError("run at least one step first")
         zones, grid = self.state.zones, self.grid
-        l_min = torch.minimum(grid.dz, grid.dr) * torch.ones_like(grid.vol)
         ve = volume_em(self.tables.e_ph, self.tables.gnt, zones.f_nt,
                        zones.tea, zones.n_e, zones.B_field, zones.amxwl,
-                       grid.vol, grid.zone_surf, l_min, self.state.dt_prev,
+                       grid.vol, grid.zone_surf, self.consts.l_min,
+                       self.state.dt_prev,
                        self.scales, f_pair=zones.f_pair)
         return photon_fill(
             zones, self.last_outputs.tallies.n_field, self.tables, grid.vol,
@@ -721,14 +818,6 @@ def flare_zones(zones: ZoneState, grid: Grid, fl, time, scales: Scales
                           tna=zones.tna * (1.0 + tl_flare))
 
 
-def adapt_dt(dt_new, grid: Grid, scales: Scales):
-    """The FP ladder's next dt (update2d.f:232-243) held at or above
-    dt_min = min(dr_min, dz) L / c (update2d.f:257)."""
-    dt_min = torch.minimum(torch.min(torch.diff(grid.r_edges)), grid.dz) \
-        * float(np.float32(scales.L / cn.C_LIGHT))
-    return torch.maximum(dt_new, dt_min.to(dt_new.dtype))
-
-
 def fp_zone_farm(mesh: pmesh.PhotonMesh, args: tuple, kw: dict) -> FPResult:
     """``fp_step(*args, **kw)`` as the reference's FP zone farm
     (update2d.f:190-214): this rank solves its zone slice, a (Zs, 1) grid
@@ -767,15 +856,15 @@ def fp_zone_farm(mesh: pmesh.PhotonMesh, args: tuple, kw: dict) -> FPResult:
                     incomplete=inc)
 
 
-def _step_impl(state: SimState, src: sourcing.SourceStatic, grid: Grid,
-               tables: Tables, cfg: SimConfig, scales: Scales, ncycle: int,
-               pair_tables: Optional[PairTables] = None,
-               coulomb_tables: Optional[CoulombTables] = None,
-               mesh: Optional[pmesh.PhotonMesh] = None,
+def _step_impl(state: SimState, src: sourcing.SourceStatic, ncycle: int,
+               mesh: Optional[pmesh.PhotonMesh], const: StepConstants
                ) -> Tuple[SimState, StepOutputs]:
-    """One step. ``ncycle`` is the host mirror of ``state.ncycle``. Under a
-    ``mesh``, ``state.photons`` are this rank's slots (the order of the
-    JAX package's sharded step, compton2d_tpu/driver.py:736-1192)."""
+    """One step with the run's constants ``const`` (:func:`step_constants`).
+    ``ncycle`` is the host mirror of ``state.ncycle``. Under a ``mesh``,
+    ``state.photons`` are this rank's slots (the order of the JAX
+    package's sharded step, compton2d_tpu/driver.py:736-1192)."""
+    cfg, grid, tables, scales = const.cfg, const.grid, const.tables, \
+        const.scales
     g, phys, run = cfg.grid, cfg.physics, cfg.run
     nz, nr = g.nz, g.nr
     nzr = nz * nr
@@ -785,7 +874,7 @@ def _step_impl(state: SimState, src: sourcing.SourceStatic, grid: Grid,
     f32, i32 = torch.float32, torch.int32
     n = state.photons.n_slots
     world = 1 if mesh is None else mesh.world
-    zone_shard = world > 1 and run.zone_shard and nzr >= world
+    zone_shard = const.zone_shard
 
     # ---- 0. census replay: reset flight clocks (imcfield2d.f:117) -------
     with tm.span("step.census"):
@@ -807,9 +896,8 @@ def _step_impl(state: SimState, src: sourcing.SourceStatic, grid: Grid,
                             zones.f_pair, zones.B_field,
                             tables.gamma_bar.forward)
         zones = zones._replace(B_field=B)
-        l_min = torch.minimum(grid.dz, grid.dr) * torch.ones_like(grid.vol)
         em_zones = (zones.f_nt, zones.tea, zones.n_e, B, zones.amxwl, grid.vol,
-                    grid.zone_surf, l_min, zones.f_pair)
+                    grid.zone_surf, const.l_min, zones.f_pair)
         if zone_shard:
             em_zones = [pmesh.zone_slice(mesh, x) for x in em_zones]
         ve = volume_em(tables.e_ph, tables.gnt, *em_zones[:-1], state.dt,
@@ -832,7 +920,7 @@ def _step_impl(state: SimState, src: sourcing.SourceStatic, grid: Grid,
         if run.census_rr:
             u_rr = torch.rand(n, generator=gen, device=dev)
             photons, e_rr, n_rr = census_roulette(
-                photons, u_rr, run.census_rr_hi, run.census_rr_lo,
+                photons, u_rr, run.census_rr_hi, const.rr_target,
                 n_reserve=budget.n_new,
             )
         else:
@@ -843,16 +931,14 @@ def _step_impl(state: SimState, src: sourcing.SourceStatic, grid: Grid,
         # the windowed mode gives each 1024-slot tile a 2*WIN_Z-zone window:
         # sort the census by zone bucket, dead slots last, so that emission
         # fills the free tail in zone order and the tiles stay zone-coherent
-        tracker = select_tracker(cfg, world)
-        win_z = flight.window_z(nz, nr) if tracker == "kernel" else 0
-        if win_z:
-            photons = zone_sort(photons, nz, nr, win_z)
+        if const.win_z:
+            photons = zone_sort(photons, nz, nr, const.win_z)
 
     # ---- 1b. pair physics from the census field (imcgen2d.f:354-396) ----
     if phys.pair_switch:
         with tm.span("step.pairs"):
-            pf = pair_fields(photons, zones, tables, pair_tables, grid,
-                             scales, nz, nr, mesh, zone_shard)
+            pf = pair_fields(photons, zones, tables, const.pair_tables,
+                             grid, scales, nz, nr, mesh, zone_shard)
         state = state._replace(k_gg=pf.k_gg, dn_pp=pf.dn_pp,
                                dne_pa=pf.dne_pa, dnp_pa=pf.dnp_pa)
         nph_raw, nph_fit = pf.nph_raw, pf.nph_fit
@@ -879,26 +965,12 @@ def _step_impl(state: SimState, src: sourcing.SourceStatic, grid: Grid,
             tables.sigma_e, zones.f_nt, tables.gnt, zones.n_e, f_pair
         ).reshape(nzr, -1).to(f32)
         kappa_zone = ve.kappa_tot.reshape(nzr, -1).to(f32)
-        ctx = TrackContext(
-            r_edges=grid.r_edges.to(f32),
-            z_edges=grid.z_edges.to(f32),
+        ctx = const.ctx._replace(
             opac_zone=torch.stack([sigma_zone, kappa_zone], dim=-1),
             cdf_nt=zones.cdf_nt.reshape(nzr, -1).to(f32),
-            gnt=tables.gnt,
-            e_ph_log0=tm.read("track.tables", tables.e_ph_log0, float),
-            e_ph_dlog=tm.read("track.tables", tables.e_ph_dlog, float),
-            e_gg_log0=tables.e_gg_log0,
-            e_gg_dlog=tables.e_gg_dlog,
-            e_field_log0=torch.log(tables.e_field[0]),
-            e_field_dlog=torch.log(tables.e_field[1] / tables.e_field[0]),
-            hu=tables.hu,
-            mu_edges=tables.mu_edges,
-            lc_lo=tables.lc_lo,
-            lc_hi=tables.lc_hi,
             tbbl_pos=src.tbb_lower > 0.0,
             time=state.time,
             dt=state.dt,
-            inv_c=float(np.float32(scales.inv_c)),
             # 1/(n_eff sigma_T L F_tot): the stratified-scatter normalizer
             # (Z = <sigma_KN ratio> = sig_s * inv_nsigt, the quadrature of
             # zone_sigma_table)
@@ -910,25 +982,6 @@ def _step_impl(state: SimState, src: sourcing.SourceStatic, grid: Grid,
                 1e-38,
             ),
             kgg_zone=state.k_gg.reshape(nzr, -1).to(f32),
-            e_ref=tables.e_ref,
-            p_ref_t=tables.p_ref.T.contiguous() if phys.cr_sent else None,
-            w_abs_t=tables.w_abs.T.contiguous() if phys.cr_sent else None,
-        )
-        strat_icut = 0
-        if cfg.source.strat_split:
-            # the gnt index of the tail boundary gamma_c (gnt holds gamma - 1)
-            strat_icut = int(np.searchsorted(gnt_grid(g.num_nt),
-                                             cfg.source.strat_gamma_c - 1.0))
-            strat_icut = min(max(strat_icut, 1), g.num_nt - 1)
-        st = TrackStatics(
-            nz=nz, nr=nr, cr_sent=phys.cr_sent, rmin_positive=g.r_min > 1e-10,
-            max_iters=run.max_flight_iters,
-            max_scatter_tries=run.max_scatter_tries,
-            weight_floor=cfg.source.weight_floor, spec_switch=phys.spec_switch,
-            pair_switch=bool(phys.pair_switch),
-            strat_split=cfg.source.strat_split, strat_icut=strat_icut,
-            strat_p_max=cfg.source.strat_p_max,
-            strat_copies=cfg.source.strat_copies, tracker=tracker,
         )
         tallies = Tallies.zeros(nz, nr, g.num_nt, g.nphfield, g.n_gg, g.nmu,
                                 g.nphtotal, g.nph_lc, device=dev)
@@ -940,8 +993,8 @@ def _step_impl(state: SimState, src: sourcing.SourceStatic, grid: Grid,
         )
         n_tracked = torch.sum(photons.alive.to(i32), dtype=i32)
         photons, tallies, events = transport_step(
-            photons, tallies, events, gen, ctx, st)
-        tallies = census_tally(photons, tallies, ctx, st)
+            photons, tallies, events, gen, ctx, const.track)
+        tallies = census_tally(photons, tallies, ctx, const.track)
         if mesh is not None:
             # the reference's MPI_REDUCE trees (xec2d.f:325-399), in rank order
             tallies, n_tracked = pmesh.all_gather_sum(
@@ -956,10 +1009,10 @@ def _step_impl(state: SimState, src: sourcing.SourceStatic, grid: Grid,
             fp_args = (
                 flare_zones(zones, grid, phys.flare, state.time, scales),
                 tallies.n_field, tables, grid.vol, float(g.z_max), grid.dz,
-                state.dt, state.time, ve.eloss_sy, phys, scales)
+                state.dt, state.time, ve.eloss_sy, phys, scales, const.fp)
             fp_kw = dict(eloss_br=ve.eloss_br, dn_pp=state.dn_pp,
                          dne_pa=state.dne_pa, dnp_pa=state.dnp_pa,
-                         coulomb=coulomb_tables)
+                         coulomb=const.coulomb_tables)
             fpr = (fp_zone_farm(mesh, fp_args, fp_kw) if zone_shard
                    else fp_step(*fp_args, **fp_kw))
             # only apply after the field is established (ncycle > 0); the
@@ -973,7 +1026,9 @@ def _step_impl(state: SimState, src: sourcing.SourceStatic, grid: Grid,
             fp_sub = fpr.substeps
             fp_inc = fpr.incomplete if apply else zero_i
             if run.adaptive_dt and apply:
-                dt_next = adapt_dt(fpr.dt_new, grid, scales).to(state.dt.dtype)
+                # the FP ladder's next dt (update2d.f:232-243), at least dt_min
+                dt_next = torch.maximum(fpr.dt_new, const.dt_min.to(
+                    fpr.dt_new.dtype)).to(state.dt.dtype)
     else:
         zones_new = zones
         dT_max, e_el_old, e_el_new = zero, zero, zero

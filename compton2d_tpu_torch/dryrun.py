@@ -70,9 +70,10 @@ def entry(device="cuda"):
     sim = Simulation(cfg, zi, device=device)
 
     def fn(state, src, grid, tables):
-        return driver._step_impl(state, src, grid, tables, cfg, sim.scales,
-                                 int(state.ncycle), sim.pair_tables,
-                                 sim.coulomb_tables)
+        const = driver.step_constants(cfg, grid, tables, sim.scales,
+                                      sim.tracker, 1, sim.pair_tables,
+                                      sim.coulomb_tables)
+        return driver._step_impl(state, src, int(state.ncycle), None, const)
 
     return fn, (sim.state, sim.src_static, sim.grid, sim.tables)
 

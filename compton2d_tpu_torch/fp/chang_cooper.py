@@ -6,12 +6,9 @@
 """
 from __future__ import annotations
 
-import functools
 from typing import Tuple
 
 import torch
-
-from compton2d_tpu_torch import telemetry as tm
 
 
 def _w_over_expm1(w):
@@ -46,7 +43,8 @@ def grid_spacing(gnt) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
 def chang_cooper_coeffs(gnt, dgdt, disp, d_t, t_esc
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Tridiagonal coefficients (a, b, c), shapes (..., num_nt)
-    (update2d.f:1363-1390)."""
+    (update2d.f:1363-1390). ``t_esc`` is a float, or a tensor on the
+    device of ``d_t``: a float is a copy from the host on each call."""
     num_nt = gnt.shape[0]
     d_gm, d_gp, delta_g = grid_spacing(gnt)
 
@@ -71,9 +69,8 @@ def chang_cooper_coeffs(gnt, dgdt, disp, d_t, t_esc
         + dt_e / delta_g * (
             big_c * big_w / d_gp + big_c_m1 * w_pos_m1 / d_gm
         )
-        + dt_e / tm.read("fp.upload", t_esc, functools.partial(
-            torch.as_tensor, dtype=dt_e.dtype, device=dt_e.device))[
-                ..., None]
+        + dt_e / torch.as_tensor(t_esc, dtype=dt_e.dtype,
+                                 device=dt_e.device)[..., None]
     )
     a = -dt_e / delta_g * big_c_m1 * big_w_m1 / d_gm
     # boundary rows (update2d.f:1319-1324)

@@ -27,7 +27,6 @@ diagnostic only.
 from __future__ import annotations
 
 import ctypes
-import functools
 from pathlib import Path
 from time import perf_counter
 from typing import NamedTuple, Optional
@@ -61,10 +60,24 @@ def zone_contract(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
                       for z0 in range(0, a.shape[0], chunk)])
 
 
-def _zero_last(t: torch.Tensor) -> None:
-    """``t[-1] = 0``: on a card, a copy of the host's 0 that waits for the
-    stream."""
-    t[-1] = 0.0
+class FPConstants(NamedTuple):
+    """What :func:`fp_step` takes from the configuration and the tables
+    alone, made once a run by :func:`fp_constants`."""
+
+    p_cand: torch.Tensor      # (199,) f32 the refit's trial power-law indices
+    t_esc: float              # escape time [s]: the kernel's
+    t_esc_dev: torch.Tensor   # () f64 and on the device: the plain loop's
+
+
+def fp_constants(gnt: torch.Tensor, z_max: float,
+                 phys: PhysicsConfig) -> FPConstants:
+    """The FPConstants of the configuration on the device of ``gnt``."""
+    t_esc = phys.r_esc * z_max / cn.C_LIGHT
+    return FPConstants(
+        p_cand=torch.as_tensor(np.arange(0.1, 10.01, 0.05, dtype=np.float32),
+                               device=gnt.device),
+        t_esc=t_esc, t_esc_dev=torch.tensor(t_esc, dtype=torch.float64,
+                                            device=gnt.device))
 
 
 class FPResult(NamedTuple):
@@ -114,6 +127,7 @@ class Loop(NamedTuple):
     slab_vol: torch.Tensor    # () volume of one z-slab of the whole grid
     dz: torch.Tensor          # () z-row height [L]
     t_esc: float              # escape time [s]
+    t_esc_dev: torch.Tensor   # () the same on the device
     k_dT: float
     k_mec2_vol: float
     k_coul: float
@@ -137,17 +151,18 @@ class Substeps(NamedTuple):
 
 def fp_step(
     zones: ZoneState, n_field, tables: Tables, vol, z_max: float, dz, dt,
-    time, eloss_sy, phys: PhysicsConfig, scales: Scales,
+    time, eloss_sy, phys: PhysicsConfig, scales: Scales, fc: FPConstants,
     eloss_br=None, dn_pp=None, dne_pa=None, dnp_pa=None, coulomb=None,
     j_row=None, slab_vol=None, zone_valid=None,
 ) -> FPResult:
-    """All energies scaled by scales.E, volumes by scales.L^3. Under
-    pair_switch, ``dn_pp`` (pair production), ``dne_pa`` and ``dnp_pa``
-    (electron and positron annihilation), each (nz, nr, num_nt) in
-    cm^-3 s^-1, act on the electrons and the positrons; all three are
-    required then. Under ``phys.fp_include_coulomb`` the Coulomb terms
-    come from ``coulomb`` (``physics.coulomb.CoulombTables``) when given,
-    else from ``_coulomb_drift``. The solve runs in the precision of
+    """All energies scaled by scales.E, volumes by scales.L^3; ``fc`` is
+    the run's :func:`fp_constants`. Under pair_switch, ``dn_pp`` (pair
+    production), ``dne_pa`` and ``dnp_pa`` (electron and positron
+    annihilation), each (nz, nr, num_nt) in cm^-3 s^-1, act on the
+    electrons and the positrons; all three are required then. Under
+    ``phys.fp_include_coulomb`` the Coulomb terms come from ``coulomb``
+    (``physics.coulomb.CoulombTables``) when given, else from
+    ``_coulomb_drift``. The solve runs in the precision of
     ``zones.f_nt``: float32 as the reference on every path; float64 zones
     (with the tables' gamma_bar in float64) are a precision check of the
     float32 solve, on the CPU.
@@ -170,8 +185,8 @@ def fp_step(
     wdg = torch.cat([dg, dg[-1:] * 0.0])
     dt32 = torch.as_tensor(dt, dtype=f32, device=dev)
     time32 = torch.as_tensor(time, dtype=f32, device=dev)
+    idx = torch.arange(num_nt, device=dev)
 
-    t_esc = phys.r_esc * z_max / cn.C_LIGHT
     t_acc = phys.r_acc * z_max / cn.C_LIGHT
     k_mec2_vol = scales.mec2_vol
     k_dgic = scales.nfield_to_dgic
@@ -217,16 +232,13 @@ def fp_step(
         # so a source there flows into its neighbour in proportion to the
         # drift coefficient without ever leaving the end bin, and creates
         # particles (a fault of the reference; ROADMAP C)
-        interior = torch.ones(num_nt, dtype=f32, device=dev)
-        interior[0] = interior[-1] = 0.0
-        pair_rows = tuple(x.reshape(Z, num_nt).to(f32) * interior
+        inner = ((idx > 0) & (idx < num_nt - 1)).to(f32)
+        pair_rows = tuple(x.reshape(Z, num_nt).to(f32) * inner
                           for x in (dn_pp, dne_pa, dnp_pa))
     inj = phys.injection
-    gauss_prof = torch.exp(
+    gauss_prof = torch.where(idx < num_nt - 1, torch.exp(
         -((gamma - inj.gauss_g) * (gamma - inj.gauss_g))
-        / (2.0 * inj.gauss_sigma**2)
-    )
-    tm.read("fp.upload", gauss_prof, _zero_last)
+        / (2.0 * inj.gauss_sigma**2)), 0.0)
     dg_cp = disp_cp = None
     if phys.fp_include_coulomb and coulomb is not None:
         # the e-p rows depend on the (fixed) proton temperature only
@@ -248,7 +260,7 @@ def fp_step(
         time=time32,
         slab_vol=(torch.sum(volume) / nz if slab_vol is None
                   else slab_vol),
-        dz=dz, t_esc=t_esc,
+        dz=dz, t_esc=fc.t_esc, t_esc_dev=fc.t_esc_dev,
         k_dT=6.25e8 * scales.E / (1.5 * scales.L3), k_mec2_vol=k_mec2_vol,
         k_coul=1.5 * 1.7386e-26 * scales.L3 / scales.E, z_max=z_max,
         phys=phys, scales=scales, gamma_bar=tables.gamma_bar,
@@ -274,7 +286,6 @@ def fp_step(
     )
 
     # ---- effective nonthermal parameters (update2d.f:1654-1736) ---------
-    idx = torch.arange(num_nt, device=dev)
     interior = (idx >= 4) & (idx < num_nt - 5)
     above_lo = interior & (f > 1e-10)
     i_nt = torch.argmax(above_lo.to(i32), dim=-1)
@@ -290,10 +301,7 @@ def fp_step(
     sum_all = torch.clamp_min(torch.sum(f * wdg, dim=-1), 1e-30)
     amxwl_eff = torch.clamp(sum_th / sum_all, 0.0, 1.0)
     sum_e_mean = torch.sum(gamma * f * wdg, dim=-1) / sum_all
-    p_cand = tm.read("fp.upload", np.arange(0.1, 10.01, 0.05,
-                                            dtype=np.float32),
-                     functools.partial(torch.as_tensor, device=dev,
-                                       dtype=f32))
+    p_cand = fc.p_cand.to(f32)
     nt_mask = (idx[None, :] >= i_nt[:, None]) & (idx < num_nt - 1)
     y_c = gamma[None, :] / gmax_eff[:, None]
     base = torch.where(nt_mask & (y_c < 90.0),
@@ -509,7 +517,7 @@ def substep_loop_reference(lp: Loop) -> Substeps:
             dg_cp, disp_cp = _coulomb_drift(gamma, lp.tna, npz, lnL)
             dgdt = dgdt + dg_cp
             disp = disp + disp_cp
-        a, b, c = chang_cooper_coeffs(lp.gnt, dgdt, disp, d_t, t_esc)
+        a, b, c = chang_cooper_coeffs(lp.gnt, dgdt, disp, d_t, lp.t_esc_dev)
         f_new = pcr_solve(a, b, c, f_inj)
         f_new[..., 0] = 0.0
         f_new[..., -1] = 0.0

@@ -6,16 +6,13 @@ with the harmonic index m drawn with probability 1/m^4 / zeta(4)
 """
 from __future__ import annotations
 
-import functools
-
 import numpy as np
 import torch
 
-from compton2d_tpu_torch import telemetry as tm
-
 _ZETA4 = float(np.pi**4 / 90.0)
 _M_MAX = 64
-_CDF_M = np.cumsum(1.0 / np.arange(1, _M_MAX + 1, dtype=np.float64) ** 4)
+# the harmonic index's CDF, unnormalised: SourceStatic.planck_cdf
+CDF_M = np.cumsum(1.0 / np.arange(1, _M_MAX + 1, dtype=np.float64) ** 4)
 
 
 def draw_planck_uniforms(gen: torch.Generator, n: int, device):
@@ -26,12 +23,11 @@ def draw_planck_uniforms(gen: torch.Generator, n: int, device):
     return u4, rn
 
 
-def sample_planck(u4: torch.Tensor, rn: torch.Tensor,
-                  T_keV: torch.Tensor) -> torch.Tensor:
-    """Planck-distributed energies [keV] at temperatures ``T_keV``."""
+def sample_planck(u4: torch.Tensor, rn: torch.Tensor, T_keV: torch.Tensor,
+                  cdf: torch.Tensor) -> torch.Tensor:
+    """Planck-distributed energies [keV] at temperatures ``T_keV``;
+    ``cdf`` is CDF_M in float32 on their device."""
     ap0 = -torch.sum(torch.log(u4), dim=-1)
-    cdf = tm.read("source.upload", _CDF_M.astype(np.float32),
-                  functools.partial(torch.as_tensor, device=rn.device))
     # count(cdf < rn * zeta4): cdf is strictly increasing
     m = torch.searchsorted(cdf, (rn * _ZETA4).contiguous()) + 1
     inv_m = 1.0 / m.to(torch.float32)

@@ -58,7 +58,6 @@ def components(sim) -> dict:
     nz, nr = cfg.grid.nz, cfg.grid.nr
     gen = torch.Generator(device=dev)
     gen.manual_seed(1)
-    l_min = torch.minimum(g.dz, g.dr) * torch.ones_like(g.vol)
 
     def b_field():
         return driver.equipartition_b(
@@ -68,7 +67,7 @@ def components(sim) -> dict:
     def vol_em():
         return driver.volume_em(
             t.e_ph, t.gnt, zones.f_nt, zones.tea, zones.n_e, zones.B_field,
-            zones.amxwl, g.vol, g.zone_surf, l_min, s.dt, sc,
+            zones.amxwl, g.vol, g.zone_surf, sim.consts.l_min, s.dt, sc,
             f_pair=zones.f_pair)
 
     ve = vol_em()
@@ -91,10 +90,10 @@ def components(sim) -> dict:
         "zone_sigma_table": lambda: driver.zone_sigma_table(
             t.sigma_e, zones.f_nt, t.gnt, zones.n_e, None),
         "sample_planck": lambda: sample_planck(
-            draws.planck_u4, draws.planck_rn, t_bb),
+            draws.planck_u4, draws.planck_rn, t_bb, src.planck_cdf),
         "compute_budget": budget,
         "census_roulette": lambda: driver.census_roulette(
-            s.photons, u_rr, cfg.run.census_rr_hi, cfg.run.census_rr_lo,
+            s.photons, u_rr, cfg.run.census_rr_hi, sim.consts.rr_target,
             n_reserve=bud.n_new),
         "emit": lambda: sourcing.emit(
             s.photons, draws, bud, src, g.r_edges, g.z_edges, g.zone_surf,

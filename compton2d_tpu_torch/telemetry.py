@@ -44,12 +44,11 @@ Names used by the step (``driver``, ``transport``, ``fp``, ``io``,
   ``track.scatter``), ``step.fp`` and ``step.outputs``; ``run.finalize``,
   ``outputs.read_events``, ``outputs.postprocess``, ``mesh.exchange``;
 - read sites: ``fp.done`` (on the card the step's substep counts, once
-  a step; on the CPU the plain substep loop's condition), ``fp.upload``,
-  ``census.trigger``, ``census.upload``, ``segment.lengths``,
-  ``source.upload``, ``track.more`` (the round loop's condition),
-  ``track.it_used``, ``track.leak``, ``track.scatter``, ``track.seed``,
-  ``track.tables``, ``scatter.lanes``, ``scatter.upload``,
-  ``leak.lanes``, ``loop.more``, ``loop.leak``, ``loop.scatter``,
+  a step; on the CPU the plain substep loop's condition),
+  ``census.trigger``, ``segment.lengths``, ``track.more`` (the round
+  loop's condition), ``track.it_used``, ``track.leak``,
+  ``track.scatter``, ``track.seed``, ``scatter.lanes``, ``leak.lanes``,
+  ``loop.more``, ``loop.leak``, ``loop.scatter``,
   ``step.clock``, ``step.dt``, ``step.events``, ``step.outputs``,
   ``outputs.events``, ``run.finalize``, ``mesh.buffer``;
 - counts: ``fp.substeps`` (the step's largest per-zone count of FP

@@ -289,23 +289,23 @@ def build_flight_tables(
     kgg_zone: Optional[torch.Tensor] = None,   # (nzr, n_gg)
     e_gg_log0: float = 0.0,
     e_gg_dlog: float = 1.0,
+    *, u_edges: torch.Tensor,                  # (GUIDE_G,)
 ) -> FlightTables:
     """Without ``kgg_zone`` the gamma-gamma table is zero (two bins); the
-    kernel reads it only under ``pair_switch``."""
+    kernel reads it only under ``pair_switch``. ``u_edges`` is
+    :func:`guide_u_edges` on the tables' device and the logs are host
+    floats: a run makes them once."""
     f32 = torch.float32
     dev = opac_zone.device
     if kgg_zone is None:
         kgg_zone = torch.zeros((opac_zone.shape[0], 2), dtype=f32,
                                device=dev)
-    log0_32 = torch.tensor(tm.read("track.tables", e_gg_log0, float),
-                           dtype=f32)
+    log0_32 = torch.tensor(float(e_gg_log0), dtype=f32)
     cdf = cdf_nt.to(f32).contiguous()
     num_nt = cdf.shape[1]
     if num_nt >= 65535:
         raise ValueError(f"num_nt={num_nt}: the packed guide holds uint16 "
                          "counts, so num_nt must be below 65535")
-    u_edges = tm.read("track.tables", guide_u_edges(),
-                      functools.partial(torch.as_tensor, device=dev))
     # exact compare-count (the CDF need not be bitwise monotone)
     guide = torch.sum(
         cdf[:, :, None] < u_edges[None, None, :], dim=1, dtype=torch.int32
@@ -339,8 +339,7 @@ def build_flight_tables(
         e_ph_log0=float(np.float32(e_ph_log0)),
         e_ph_dlog=float(np.float32(e_ph_dlog)),
         e_gg_log0=float(log0_32),
-        e_gg_dlog=float(np.float32(tm.read("track.tables", e_gg_dlog,
-                                           float))),
+        e_gg_dlog=float(np.float32(float(e_gg_dlog))),
         e_gg0=float(torch.exp(log0_32)),
     )
 

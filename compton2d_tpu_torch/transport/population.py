@@ -11,8 +11,6 @@ bucket for the flight kernel's windowed mode.
 """
 from __future__ import annotations
 
-import functools
-
 import torch
 
 from compton2d_tpu_torch import telemetry as tm
@@ -22,7 +20,6 @@ from compton2d_tpu_torch.state import PhotonArray
 def _roulette_weight(w, alive, target):
     """32 log-scale bisection rounds for sum(min(1, w/wc)) = target."""
     w = torch.where(alive, w, 0.0).to(torch.float32)
-    target = torch.as_tensor(target, dtype=torch.float32, device=w.device)
     total = torch.sum(w)
     lo = torch.full((), 1e-30, dtype=torch.float32, device=w.device)
     hi = torch.clamp_min(total / torch.clamp_min(target, 1.0), 2e-30)
@@ -54,17 +51,17 @@ def zone_sort(photons: PhotonArray, nz: int, nr: int,
 
 
 def census_roulette(photons: PhotonArray, u: torch.Tensor,
-                    occupancy_hi: float, occupancy_lo: float,
+                    occupancy_hi: float, target: torch.Tensor,
                     n_reserve=None):
     """Returns (photons, e_rr, n_rolled). ``u`` holds one uniform [0, 1)
-    per slot; the trigger is read on the host and the roulette runs only
-    when it fires."""
+    per slot; ``target`` is the survivors aimed at, occupancy_lo times
+    the slots as a float32 scalar on their device (a run makes it once).
+    The trigger is read on the host and the roulette runs only when it
+    fires."""
     n = photons.n_slots
     i32 = torch.int32
     n_alive = torch.sum(photons.alive.to(i32), dtype=i32)
     trigger = n_alive > int(occupancy_hi * n)
-    target = tm.read("census.upload", occupancy_lo * n, functools.partial(
-        torch.tensor, dtype=torch.float32, device=u.device))
     if n_reserve is not None:
         need = n_reserve.to(i32)
         trigger = trigger | (n - n_alive < need)

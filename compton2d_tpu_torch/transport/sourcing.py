@@ -13,14 +13,12 @@ reference lerps a 4096-knot quantile table.
 """
 from __future__ import annotations
 
-import functools
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from compton2d_tpu_torch import constants as cn
-from compton2d_tpu_torch import telemetry as tm
 from compton2d_tpu_torch.physics.planck import (
     draw_planck_uniforms,
     sample_planck,
@@ -60,6 +58,8 @@ class SourceStatic(NamedTuple):
     flux_lower: torch.Tensor
     flux_upper: torch.Tensor
     star_dilution: torch.Tensor
+    # planck.CDF_M in float32 on the device (the reference's constant)
+    planck_cdf: torch.Tensor
 
 
 class EmitUniforms(NamedTuple):
@@ -265,10 +265,7 @@ def emit(
     is_file = tbb_here < 0.0
     r_b = where(is_in, re[0], where(is_out, re[nr], r_ann))
     z_b = where(is_low, 0.0, where(is_up, ze[nz], z_unif))
-    mu_low = where(is_file, tm.read("source.upload", beam_mu,
-                                    functools.partial(
-                                        torch.tensor, dtype=f32,
-                                        device=u.device)), u[6])
+    mu_low = where(is_file, beam_mu, u[6])
     mu_b = where(is_low, mu_low, where(is_up, -u[6], mu_iso))
     phi_b = where(is_in, phi_outw, where(is_out, phi_inw, phi_full))
 
@@ -295,7 +292,7 @@ def emit(
     e_lo = torch.exp(log_e0 + torch.clamp_min(iv - 1, 0).to(f32) * dlog_e)
     e_v = e_lo + u[8] * (e_hi - e_lo)
     e_b = sample_planck(draws.planck_u4, draws.planck_rn,
-                        torch.clamp_min(tbb_here, 1e-6))
+                        torch.clamp_min(tbb_here, 1e-6), src.planck_cdf)
     if src.spec_e.shape[0] > 1:
         # a bank of the dummy row alone means no ring reads a file
         sid = where(is_low, src.spec_lower[kr_sl], src.spec_upper[kr_sl])

@@ -78,7 +78,9 @@ class TrackStatics:
 
 
 class TrackContext(NamedTuple):
-    """Per-step inputs for the tracker (fields as in the reference)."""
+    """The tracker's inputs (fields as in the reference): those that the
+    configuration and the tables fix are made once a run (the driver's
+    ``step_constants``), the zone rows and the clock each step."""
 
     r_edges: torch.Tensor     # (nr+1,) f32
     z_edges: torch.Tensor     # (nz+1,) f32
@@ -99,6 +101,12 @@ class TrackContext(NamedTuple):
     time: torch.Tensor        # () f32 [s]
     dt: torch.Tensor          # () f32 [s]
     inv_c: float              # seconds per scaled length
+    # the flight kernel's guide-cell edges (flight.guide_u_edges) on the
+    # device, and e_gg_log0, e_gg_dlog as host floats: its launch takes
+    # floats, the device math above 0-d tensors
+    guide_u: torch.Tensor
+    e_gg_host: Tuple[float, float]
+    strat_frac: torch.Tensor  # strat_fractions(strat_copies)
     # (nz*nr,) 1/(n_eff sigma_T L F_tot), the stratified-scatter
     # normalizer; needed only under strat_split
     inv_nsigt: Optional[torch.Tensor] = None
@@ -112,6 +120,15 @@ class TrackContext(NamedTuple):
     e_ref: Optional[torch.Tensor] = None
     p_ref_t: Optional[torch.Tensor] = None
     w_abs_t: Optional[torch.Tensor] = None
+
+
+def strat_fractions(copies: int, device=None) -> torch.Tensor:
+    """(2, M, 1) f32: m / M and (m + 1) / M, the bounds of the sub-strata
+    of the M = max(copies, 1) tail copies of a stratified scatter."""
+    m_cp = max(int(copies), 1)
+    return torch.tensor([[m / m_cp for m in range(m_cp)],
+                         [(m + 1.0) / m_cp for m in range(m_cp)]],
+                        dtype=torch.float32, device=device)[..., None]
 
 
 class LeakDraws(NamedTuple):
@@ -341,8 +358,8 @@ def _track_kernel(photons, tallies, events, gen, ctx, st):
         ftab = flight.build_flight_tables(
             ctx.opac_zone, ctx.cdf_nt, ctx.gnt, ctx.r_edges, ctx.z_edges,
             ctx.e_ph_log0, ctx.e_ph_dlog, kgg_zone=ctx.kgg_zone,
-            e_gg_log0=ctx.e_gg_log0, e_gg_dlog=ctx.e_gg_dlog,
-        )
+            e_gg_log0=ctx.e_gg_host[0], e_gg_dlog=ctx.e_gg_host[1],
+            u_edges=ctx.guide_u)
     ph, tl, ev = photons, tallies, events
     rnd, it_tot = 0, 0
     while (rnd < st.max_iters and it_tot < st.max_iters
@@ -560,7 +577,6 @@ def apply_scatter(ph: PhotonArray, tl: Tallies, sct: torch.Tensor,
     count)."""
     if not st.strat_split:
         return _apply_rejection_scatter(ph, tl, sct, zid, draw, ctx, st)
-    f32 = torch.float32
     nzr = st.nz * st.nr
     num_nt = ctx.cdf_nt.shape[1]
     m_cp = max(int(st.strat_copies), 1)
@@ -608,12 +624,7 @@ def apply_scatter(ph: PhotonArray, tl: Tallies, sct: torch.Tensor,
         # copy m of the parent of rank j goes to the free slot of rank
         # j * M + m; copies are laid out (M, n_placed), copy-major
         slots = free_slots[:n_pl * m_cp].reshape(n_pl, m_cp).t().reshape(-1)
-        upload = functools.partial(torch.tensor, dtype=f32, device=c.device)
-        m_lo = tm.read("scatter.upload",
-                       [m * 1.0 / m_cp for m in range(m_cp)], upload)[:, None]
-        m_hi = tm.read("scatter.upload",
-                       [(m + 1.0) / m_cp for m in range(m_cp)],
-                       upload)[:, None]
+        m_lo, m_hi = ctx.strat_frac
         cp = c[pl][None, :]
         u_lo = (cp + (1.0 - cp) * m_lo).reshape(-1)
         last = torch.arange(m_cp, device=c.device)[:, None] == m_cp - 1

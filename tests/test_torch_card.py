@@ -57,7 +57,9 @@ def _inputs(dev, seed=0, pairs=False, nz=NZ, nr=NR):
     tables = flight.build_flight_tables(
         t(opac), t(cdf), t(gnt), t(np.linspace(0, 1, nr + 1)),
         t(np.linspace(0, 1, nz + 1)), float(np.log(e_ph[0])),
-        float(np.log(e_ph[1] / e_ph[0])), kgg_zone=t(kgg),
+        float(np.log(e_ph[1] / e_ph[0])),
+        u_edges=torch.as_tensor(flight.guide_u_edges(), device=dev),
+        kgg_zone=t(kgg),
         e_gg_log0=float(np.log(e_gg[0])),
         e_gg_dlog=float(np.log(e_gg[1] / e_gg[0])))
     jz, kr = rng.integers(0, nz, N), rng.integers(0, nr, N)

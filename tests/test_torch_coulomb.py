@@ -192,7 +192,9 @@ def _fp_pair(carried, coulomb_on: bool, jtab, ptab):
     rp = pupd.fp_step(state.zones, torch.as_tensor(n_field), tables,
                       grid.vol, float(psim.cfg.grid.z_max), grid.dz,
                       state.dt, state.time, torch.as_tensor(eloss_sy),
-                      pphys, psim.scales, coulomb=ptab)
+                      pphys, psim.scales, pupd.fp_constants(
+                          tables.gnt, float(psim.cfg.grid.z_max), pphys),
+                      coulomb=ptab)
     return rj, rp
 
 

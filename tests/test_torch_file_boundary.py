@@ -24,6 +24,7 @@ from compton2d_tpu_torch import examples as pex
 from compton2d_tpu_torch.driver import Simulation as PSim
 from compton2d_tpu_torch.driver import _estimate_energy_scale as p_scale
 from compton2d_tpu_torch.io import legacy as pleg
+from compton2d_tpu_torch.physics import planck
 from compton2d_tpu_torch.physics.emissivity import normalized_cdf
 from compton2d_tpu_torch.state import PhotonArray as PPhotons
 from compton2d_tpu_torch.transport import sourcing as psrc
@@ -84,9 +85,12 @@ def sims(bank_file):
 
 def _assert_source_equal(sp, sj):
     """Every field of the port's SourceStatic equals the reference's (the
-    bank bit for bit; the reference's quantile table has no counterpart)."""
-    assert set(sp._fields) == set(sj._fields) - {"spec_inv"}
-    for name in sp._fields:
+    bank bit for bit; the reference's quantile table has no counterpart,
+    and the port's Planck CDF is the reference's module constant)."""
+    assert set(sp._fields) - {"planck_cdf"} == set(sj._fields) - {"spec_inv"}
+    np.testing.assert_array_equal(_np(sp.planck_cdf),
+                                  np.float32(planck.CDF_M))
+    for name in sorted(set(sp._fields) - {"planck_cdf"}):
         np.testing.assert_array_equal(_np(getattr(sp, name)),
                                       np.asarray(getattr(sj, name)),
                                       err_msg=name)

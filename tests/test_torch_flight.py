@@ -85,7 +85,7 @@ def _tables_torch(tab):
         t(tab["r_edges"].astype(np.float32)),
         t(tab["z_edges"].astype(np.float32)), tab["log0"], tab["dlog"],
         kgg_zone=t(tab["kgg"]), e_gg_log0=float(np.log(E_GG0)),
-        e_gg_dlog=E_GG_DLOG,
+        e_gg_dlog=E_GG_DLOG, u_edges=torch.as_tensor(flight.guide_u_edges()),
     )
 
 

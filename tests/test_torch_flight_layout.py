@@ -46,6 +46,7 @@ def _tables(nz, nr, n_vol, num_nt, n_gg, seed=0, kappa=(0.0, 0.1)):
         t(np.linspace(0, 1, nr + 1), dtype=torch.float32),
         t(np.linspace(0, 1, nz + 1), dtype=torch.float32),
         float(np.log(e_ph[0])), float(np.log(e_ph[1] / e_ph[0])),
+        u_edges=torch.as_tensor(flight.guide_u_edges()),
         kgg_zone=t(kgg, dtype=torch.float32),
         e_gg_log0=float(np.log(e_gg[0])),
         e_gg_dlog=float(np.log(e_gg[1] / e_gg[0])))
@@ -95,7 +96,8 @@ def _linear_cdf_tables(num_nt):
         t(np.ones((1, 4, 2)), dtype=f32),
         t(np.linspace(0.0, 1.0, num_nt)[None, :], dtype=f32),
         t(np.geomspace(1e-4, 1e4, num_nt), dtype=f32),
-        t([0.0, 1.0], dtype=f32), t([0.0, 1.0], dtype=f32), 0.0, 1.0)
+        t([0.0, 1.0], dtype=f32), t([0.0, 1.0], dtype=f32), 0.0, 1.0,
+        u_edges=torch.as_tensor(flight.guide_u_edges()))
 
 
 def test_uint16_guide_limits_num_nt():

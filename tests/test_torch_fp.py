@@ -15,6 +15,7 @@ from compton2d_tpu.physics.emissivity import volume_em as j_volume_em
 from compton2d_tpu_torch import convert
 from compton2d_tpu_torch import examples as pex
 from compton2d_tpu_torch.fp import chang_cooper as pcc
+from compton2d_tpu_torch.fp.update import fp_constants
 from compton2d_tpu_torch.fp.update import fp_step as p_fp_step
 
 torch.set_num_threads(2)
@@ -149,7 +150,9 @@ def test_fp_step_matches_reference(carried):
     rp = p_fp_step(state.zones, torch.as_tensor(n_field), tables, grid.vol,
                    float(psim.cfg.grid.z_max), grid.dz, state.dt,
                    state.time, torch.as_tensor(eloss_sy),
-                   psim.cfg.physics, psim.scales)
+                   psim.cfg.physics, psim.scales, fp_constants(
+                       tables.gnt, float(psim.cfg.grid.z_max),
+                       psim.cfg.physics))
     assert int(rp.substeps) == int(rj.substeps)
     assert int(rp.incomplete) == int(rj.incomplete)
     assert int(rj.substeps) > 1                  # the substep loop ran
@@ -165,3 +168,41 @@ def test_fp_step_matches_reference(carried):
             atol=RTOL * 1e-3 * np.abs(ref).max(), err_msg=name)
     np.testing.assert_allclose(_np(rp.zones.p_nth), _np(rj.zones.p_nth),
                                atol=0.051)
+
+
+def test_float64_zones_hand_the_loop_float64_rows(monkeypatch):
+    """fp_step on float64 zones (the precision check) hands the substep
+    loop float64 rows, the injection profile among them (the Gaussian
+    evaluated in float64, its last bin 0), and the escape time both as
+    the kernel's float and as a tensor on the zones' device."""
+    from compton2d_tpu_torch.fp import update
+
+    sim = pex.small_corona(nz=2, nr=2, nst=200, n_slots=1024, num_nt=40,
+                           n_vol=32, nphfield=32, device="cpu")
+    seen = []
+
+    def stop(lp):
+        seen.append(lp)
+        raise RuntimeError("stop")
+
+    monkeypatch.setattr(update, "substep_loop", stop)
+    z = sim.state.zones
+    z64 = z._replace(**{f: getattr(z, f).double() for f in z._fields
+                        if getattr(z, f).is_floating_point()})
+    cfg, f64 = sim.cfg, torch.float64
+    with pytest.raises(RuntimeError, match="stop"):
+        update.fp_step(z64, torch.zeros(2, 2, 32, dtype=f64), sim.tables,
+                       sim.grid.vol, float(cfg.grid.z_max), sim.grid.dz,
+                       sim.state.dt, sim.state.time,
+                       torch.zeros(2, 2, dtype=f64), cfg.physics,
+                       sim.scales, sim.consts.fp)
+    (lp,) = seen
+    gamma = sim.tables.gnt.to(f64) + 1.0
+    inj = cfg.physics.injection
+    prof = torch.exp(-((gamma - inj.gauss_g) * (gamma - inj.gauss_g))
+                     / (2.0 * inj.gauss_sigma**2))
+    prof[-1] = 0.0
+    assert lp.f.dtype == lp.gauss_prof.dtype == f64
+    assert torch.equal(lp.gauss_prof, prof)
+    assert lp.t_esc_dev.device == z64.f_nt.device
+    assert float(lp.t_esc_dev) == lp.t_esc > 0.0

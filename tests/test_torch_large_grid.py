@@ -119,7 +119,8 @@ def _run_port(ph, tab, seeds, max_iters, inline, fn=None):
     t = torch.as_tensor
     tables = flight.build_flight_tables(
         t(tab["opac"]), t(tab["cdf"]), t(tab["gnt"]), t(tab["r_edges"]),
-        t(tab["z_edges"]), tab["log0"], tab["dlog"])
+        t(tab["z_edges"]), tab["log0"], tab["dlog"],
+        u_edges=t(flight.guide_u_edges()))
     return (fn or flight.flight_step_reference)(
         *(t(ph[k]) for k in FIELDS), tables, t(seeds), nz=NZ, nr=NR,
         weight_floor=1e-10, max_iters=max_iters, max_tries=64,

@@ -43,6 +43,7 @@ from compton2d_tpu_torch.state import EventBuffer as PEvents
 from compton2d_tpu_torch.state import PhotonArray as PPhotons
 from compton2d_tpu_torch.state import Tallies as PTallies
 from compton2d_tpu_torch.transport import scatter as psc
+from compton2d_tpu_torch.transport import flight
 from compton2d_tpu_torch.transport import tracking as ptr
 
 from jax_scatter_draws import (
@@ -220,6 +221,9 @@ def contexts():
         tbbl_pos=_t(tbbl), time=_t(jctx.time), dt=_t(jctx.dt),
         inv_c=float(jctx.inv_c), kgg_zone=_t(kgg), e_ref=e_ref,
         p_ref_t=p_ref_t, w_abs_t=w_abs_t,
+        guide_u=torch.as_tensor(flight.guide_u_edges()),
+        e_gg_host=(float(jctx.e_gg_log0), float(jctx.e_gg_dlog)),
+        strat_frac=ptr.strat_fractions(1),
     )
     return jctx, pctx
 
@@ -464,8 +468,6 @@ def test_tracker_selection_in_the_simulation():
     128-zone edge (NotImplementedError) and slots off the tile
     (ValueError); the loop takes both; slots that do not split over the
     ranks are refused on either tracker; an unknown mode is refused."""
-    import types
-
     sim = driver.Simulation(_cfg(), device="cpu")
     assert sim.tracker == "kernel"
     sim.step()
@@ -476,10 +478,9 @@ def test_tracker_selection_in_the_simulation():
         driver.Simulation(_cfg(n_slots=4000, mode="on"), device="cpu")
     for cfg in (_cfg(nz=128), _cfg(n_slots=4000), _cfg(mode="off")):
         assert driver.Simulation(cfg, device="cpu").tracker == "loop"
-    two = types.SimpleNamespace(world=2)
-    driver.check_slice(_cfg(n_slots=4002), two)
+    driver.check_slice(_cfg(n_slots=4002), 2, "loop")
     with pytest.raises(ValueError):
-        driver.check_slice(_cfg(n_slots=4001), two)
+        driver.check_slice(_cfg(n_slots=4001), 2, "loop")
     with pytest.raises(ValueError):
         driver.select_tracker(_cfg(mode="maybe"))
 

@@ -24,6 +24,7 @@ from compton2d_tpu_torch import config as pcfg
 from compton2d_tpu_torch import convert, driver
 from compton2d_tpu_torch import examples as pex
 from compton2d_tpu_torch import tables as ptab
+from compton2d_tpu_torch.fp.update import fp_constants
 from compton2d_tpu_torch.fp.update import fp_step as p_fp_step
 from compton2d_tpu_torch.physics import pairs as ppairs
 from compare_pairs import fp_args, port_cc_limit, reference_fp
@@ -37,6 +38,12 @@ PAIR_CFG = dict(nz=2, nr=2, nst=400, n_slots=2048, num_nt=40, n_vol=32,
 
 def _np(x):
     return x.numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def _fc(psim, tables):
+    """The port's FP constants of ``psim``'s configuration on ``tables``."""
+    return fp_constants(tables.gnt, float(psim.cfg.grid.z_max),
+                        psim.cfg.physics)
 
 
 def _close_to_max(got, ref, rtol=1e-5):
@@ -252,8 +259,8 @@ def test_fp_step_with_pairs_matches_reference(carried_pairs):
     rp = p_fp_step(state.zones, torch.as_tensor(n_field), tables, grid.vol,
                    float(psim.cfg.grid.z_max), grid.dz, state.dt,
                    state.time, torch.as_tensor(eloss_sy), psim.cfg.physics,
-                   psim.scales, dn_pp=state.dn_pp, dne_pa=state.dne_pa,
-                   dnp_pa=state.dnp_pa)
+                   psim.scales, _fc(psim, tables), dn_pp=state.dn_pp,
+                   dne_pa=state.dne_pa, dnp_pa=state.dnp_pa)
     assert int(rp.substeps) == int(rj.substeps) > 1
     assert float(np.max(rj.zones.f_pair)) > 0.0
     for name in ("f_nt", "n_pos", "f_pair", "tea", "n_e"):
@@ -273,7 +280,7 @@ def test_fp_step_needs_the_pair_terms_under_pair_switch(carried_pairs):
             p_fp_step(state.zones, torch.as_tensor(n_field), tables,
                       grid.vol, float(psim.cfg.grid.z_max), grid.dz,
                       state.dt, state.time, torch.as_tensor(eloss_sy),
-                      psim.cfg.physics, psim.scales,
+                      psim.cfg.physics, psim.scales, _fc(psim, tables),
                       **{k: v for k, v in pair.items() if k != missing})
 
 
@@ -294,7 +301,7 @@ def test_pair_terms_skip_the_end_bins(carried_pairs):
             state.zones, torch.as_tensor(n_field), tables, grid.vol,
             float(psim.cfg.grid.z_max), grid.dz, state.dt, state.time,
             torch.as_tensor(eloss_sy), psim.cfg.physics, psim.scales,
-            dn_pp=state.dn_pp + torch.as_tensor(extra),
+            _fc(psim, tables), dn_pp=state.dn_pp + torch.as_tensor(extra),
             dne_pa=state.dne_pa, dnp_pa=state.dnp_pa).zones
 
     def ref(extra):

@@ -28,6 +28,7 @@ from compton2d_tpu.transport import sourcing as jsrc
 from compton2d_tpu_torch import convert
 from compton2d_tpu_torch import examples as pex
 from compton2d_tpu_torch.config import InjectionConfig as PInjection
+from compton2d_tpu_torch.fp.update import fp_constants
 from compton2d_tpu_torch.fp.update import fp_step as p_fp_step
 from compton2d_tpu_torch.io import checkpoint
 from compton2d_tpu_torch.parallel import mesh as pmesh
@@ -213,6 +214,8 @@ def test_fp_step_on_a_padded_zone_slice_matches_reference():
                    float(psim.cfg.grid.z_max), grid.dz, state.dt,
                    state.time, torch.as_tensor(part(eloss_sy)),
                    psim.cfg.physics, psim.scales,
+                   fp_constants(tables.gnt, float(psim.cfg.grid.z_max),
+                                psim.cfg.physics),
                    j_row=torch.as_tensor(part(j_row)),
                    slab_vol=torch.tensor(slab, dtype=torch.float32),
                    zone_valid=valid)

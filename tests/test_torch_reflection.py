@@ -22,6 +22,7 @@ from compton2d_tpu_torch import tables as ptables
 from compton2d_tpu_torch.state import EventBuffer as PEvents
 from compton2d_tpu_torch.state import PhotonArray as PPhotons
 from compton2d_tpu_torch.state import Tallies as PTallies
+from compton2d_tpu_torch.transport import flight
 from compton2d_tpu_torch.transport import tracking as ptr
 
 torch.set_num_threads(2)
@@ -85,6 +86,9 @@ def ctxs():
         tbbl_pos=_t(tbbl), time=_t(jctx.time), dt=_t(jctx.dt),
         inv_c=float(jctx.inv_c), e_ref=e_ref, p_ref_t=p_ref_t,
         w_abs_t=w_abs_t,
+        guide_u=torch.as_tensor(flight.guide_u_edges()),
+        e_gg_host=(float(jctx.e_gg_log0), float(jctx.e_gg_dlog)),
+        strat_frac=ptr.strat_fractions(1),
     )
     return jctx, pctx
 

@@ -146,7 +146,8 @@ def test_census_roulette_matches_with_reference_uniforms(n_reserve):
     ph_j, e_rr_j, n_rr_j = j_rr(jph, key, 0.85, 0.6,
                                 n_reserve=jnp.int32(n_reserve))
     u = jax.random.uniform(key, (N,), jnp.float32)
-    ph_p, e_rr_p, n_rr_p = p_rr(pph, _t(u), 0.85, 0.6,
+    ph_p, e_rr_p, n_rr_p = p_rr(pph, _t(u), 0.85,
+                                torch.tensor(0.6 * N, dtype=torch.float32),
                                 n_reserve=torch.tensor(n_reserve))
     assert int(n_rr_j) > 0
     assert int(n_rr_p) == int(n_rr_j)
@@ -158,7 +159,8 @@ def test_census_roulette_matches_with_reference_uniforms(n_reserve):
 
 def test_census_roulette_idle_below_occupancy():
     _, pph = _photons(5, 0.5)
-    ph_p, e_rr, n_rr = p_rr(pph, torch.rand(N), 0.85, 0.6,
+    ph_p, e_rr, n_rr = p_rr(pph, torch.rand(N), 0.85,
+                            torch.tensor(0.6 * N, dtype=torch.float32),
                             n_reserve=torch.tensor(100))
     assert int(n_rr) == 0 and float(e_rr) == 0.0
     assert torch.equal(ph_p.w, pph.w)

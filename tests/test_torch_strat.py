@@ -118,7 +118,8 @@ def test_apply_scatter_strat_matches_reference():
         gnt=_t(gnt), e_ph_log0=log0, e_ph_dlog=dlog, e_gg_log0=e0,
         e_gg_dlog=e0, e_field_log0=e0, e_field_dlog=e0, hu=e0, mu_edges=e0,
         lc_lo=e0, lc_hi=e0, tbbl_pos=e0, time=e0, dt=e0, inv_c=1.0,
-        inv_nsigt=_t(inv_nsigt),
+        inv_nsigt=_t(inv_nsigt), guide_u=e0, e_gg_host=(0.0, 1.0),
+        strat_frac=ptr.strat_fractions(M),
     )
     st_p = ptr.TrackStatics(nz=NZ, nr=NR, strat_split=True, strat_icut=icut,
                             strat_copies=M)

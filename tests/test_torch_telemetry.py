@@ -240,6 +240,64 @@ def test_loop_tracker_counts_its_condition_reads():
     assert "track.more" not in snap["reads"]
 
 
+# the read sites of values that the configuration and the tables fix: a
+# run makes them once, at set-up
+CONSTANT_SITES = {"track.tables", "fp.upload", "source.upload",
+                  "census.upload", "scatter.upload"}
+
+
+def _constants_sim(config, tmp_path):
+    import dataclasses
+
+    from compton2d_tpu_torch import decks
+    from compton2d_tpu_torch.driver import Simulation
+    from compton2d_tpu_torch.examples import mrk421
+
+    if config == "main_path":
+        return small_corona(**SMALL)
+    if config == "strat":
+        # dense enough that tail copies are placed in every step
+        sim = mrk421(nz=4, nr=2, nst=1500, n_slots=8192, num_nt=160,
+                     n_vol=64, nphfield=64, n_e=2e8, device="cpu")
+        return sim.with_config(dataclasses.replace(
+            sim.cfg, source=dataclasses.replace(
+                sim.cfg.source, strat_split=True, strat_copies=4,
+                strat_gamma_c=3e4)))
+    lc = decks.load_deck(
+        "disk_deck", str(tmp_path), nz=3, nr=2, nst=3000,
+        grid=dict(num_nt=50, n_vol=64, nphfield=64, n_gg=32, n_ref=100),
+        n_slots=4096, event_capacity=4096)
+    return Simulation(lc.cfg, lc.zones, device="cpu")
+
+
+@pytest.mark.parametrize("config", ["main_path", "strat", "disk_deck"])
+def test_step_reads_no_constant_of_the_run(config, tmp_path, monkeypatch):
+    """After a warm step, a step reads back or uploads nothing that the
+    configuration and the tables fix: the main path, a Mrk 421-like strat
+    run (whose tail copies are placed) and a deck with a file boundary and
+    reflection."""
+    from compton2d_tpu_torch.transport import tracking
+
+    copies = []
+    apply_scatter = tracking.apply_scatter
+
+    def counted(ph, *a, **k):
+        out = apply_scatter(ph, *a, **k)
+        copies.append(int(torch.sum(out[0].alive & ~ph.alive)))
+        return out
+
+    monkeypatch.setattr(tracking, "apply_scatter", counted)
+    sim = _constants_sim(config, tmp_path)
+    sim.step()
+    copies.clear()
+    tm.enable()
+    sim.step()
+    reads = tm.snapshot()["reads"]
+    assert "track.more" in reads and "fp.done" in reads
+    assert (sum(copies) > 0) == (config == "strat")
+    assert not CONSTANT_SITES & set(reads), sorted(reads)
+
+
 def test_read_counts_each_site_and_its_wait():
     def slow(x):
         time.sleep(0.002)

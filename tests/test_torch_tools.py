@@ -136,6 +136,7 @@ def _kernel_inputs(nz, nr, n, n_vol, num_nt, n_gg, seed=0):
         t(np.stack([sig, kap], axis=-1)), t(cdf), t(gnt),
         t(np.linspace(0.0, 1.0, nr + 1)), t(np.linspace(0.0, 1.0, nz + 1)),
         float(np.log(e_ph[0])), float(np.log(e_ph[1] / e_ph[0])),
+        u_edges=torch.as_tensor(flight.guide_u_edges()),
         kgg_zone=t(rng.uniform(0.5, 3.0, (nzr, n_gg))),
         e_gg_log0=float(np.log(e_gg[0])),
         e_gg_dlog=float(np.log(e_gg[1] / e_gg[0])))

@@ -17,6 +17,7 @@ from compton2d_tpu.transport.geometry import FlightGeom
 from compton2d_tpu_torch.state import EventBuffer as PEvents
 from compton2d_tpu_torch.state import PhotonArray as PPhotons
 from compton2d_tpu_torch.state import Tallies as PTallies
+from compton2d_tpu_torch.transport import flight
 from compton2d_tpu_torch.transport import tracking as ptr
 
 torch.set_num_threads(2)
@@ -67,6 +68,9 @@ def ctxs():
         mu_edges=_t(tj.mu_edges), lc_lo=_t(tj.lc_lo), lc_hi=_t(tj.lc_hi),
         tbbl_pos=_t(tbbl), time=_t(jctx.time), dt=_t(jctx.dt),
         inv_c=float(jctx.inv_c),
+        guide_u=torch.as_tensor(flight.guide_u_edges()),
+        e_gg_host=(float(jctx.e_gg_log0), float(jctx.e_gg_dlog)),
+        strat_frac=ptr.strat_fractions(1),
     )
     return jctx, pctx
 
